@@ -28,10 +28,14 @@ Phases, each printed as it ends:
 5. the staged ``"cuda"`` path on the card (``simt_alu`` inside the
    pipeline), against the CPU;
 6. the main path at n=256 on the card, at n_sm 1 and 2, plus one
-   multi-launch ``execute`` of all five; matmul must cost 83968 cycles a
+   multi-launch ``execute`` of all five, against the oracles and the
+   analytical replay; every program but matmul also against the plain
+   path on the host CPU, every counter; matmul must cost 83968 cycles a
    block;
 7. timings: each kernel's time at the shape its path gives it, its plain
-   version's time on the same inputs, and its bound.
+   version's time on the same inputs (``simt_alu``'s on the card; the
+   fused kernel's on the host CPU, plus the plain path on the card over a
+   cycle budget), and its bound.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on the card
@@ -199,37 +203,65 @@ def phase_staged_cuda(launches):
 
 
 # ------------------------------------------------------------ phase 6
+#: main-path programs also run whole through the plain path on the host CPU
+#: (matmul's 256 blocks would take most of an hour there; one dispatch group
+#: of it is held against the plain path in phase 7)
+PLAIN_AT_FULL_SIZE = ("autocorr", "bitonic", "reduction", "transpose")
+
+
 def check_grid(mod, n, g0, res, tag):
     got = res.gmem[mod.out_slice(n)]
     if not np.array_equal(got, mod.oracle(g0, n)):
         raise AssertionError(f"{tag}: gmem differs from the oracle")
 
 
+def run_entry(name, n, g0, **kw):
+    """One paper program through its user entry point: reduction's
+    host-side passes, else one ``run_grid``.  One GridResult per pass; the
+    last holds the final gmem."""
+    from repro_torch.core import scheduler
+    from repro_torch.core.programs import ALL
+    mod = ALL[name]
+    code, (grid, bd) = mod.build(n), mod.launch(n)
+    if name != "reduction":
+        return [scheduler.run_grid(code, grid, bd, g0.copy(), **kw)]
+    final, passes = mod.run_passes(partial(scheduler.run_grid, **kw), code,
+                                   n, g0.copy())
+    return passes[:-1] + [passes[-1]._replace(gmem=final)]
+
+
 def phase_main_path(launches):
     from repro_torch.core import scheduler
+    from repro_torch.core.machine import MachineConfig
     from repro_torch.core.programs import ALL
     n = 256
     rng = np.random.default_rng(3)
+    inputs = {name: ALL[name].make_gmem(rng, n) for name in sorted(ALL)}
+    t0 = time.perf_counter()
+    plain = {name: run_entry(name, n, inputs[name], device="cpu",
+                             cfg=MachineConfig(execute_backend="torch"))
+             for name in PLAIN_AT_FULL_SIZE}
+    log(f"[main path] plain path on the host CPU at n={n}: "
+        f"{' '.join(PLAIN_AT_FULL_SIZE)} in "
+        f"{time.perf_counter() - t0:.1f} s")
     launches.clear()
-    specs, inputs, walls = [], {}, {}
+    specs, walls = [], {}
     for name in sorted(ALL):
-        mod = ALL[name]
+        mod, g0 = ALL[name], inputs[name]
         code, (grid, bd) = mod.build(n), mod.launch(n)
-        g0 = mod.make_gmem(rng, n)
-        inputs[name] = g0
         specs.append(scheduler.LaunchSpec(code, grid, bd, g0.copy()))
         for n_sm in (1, 2):
             t0 = time.perf_counter()
-            if name == "reduction":
-                final, passes = mod.run_passes(
-                    partial(scheduler.run_grid, n_sm=n_sm, device="cuda"),
-                    code, n, g0.copy())
-                res = passes[-1]._replace(gmem=final)
-            else:
-                res = scheduler.run_grid(code, grid, bd, g0.copy(),
-                                         n_sm=n_sm, device="cuda")
+            passes = run_entry(name, n, g0, n_sm=n_sm, device="cuda")
             walls[f"{name}/run_grid/n_sm={n_sm}"] = time.perf_counter() - t0
+            res = passes[-1]
             check_grid(mod, n, g0, res, f"{name} n_sm={n_sm}")
+            if name in plain:
+                if len(passes) != len(plain[name]):
+                    raise AssertionError(f"{name}: pass count differs from "
+                                         "the plain path")
+                for a, b in zip(passes, plain[name]):
+                    assert_same(a, b, f"{name} n={n} n_sm={n_sm} vs plain")
             t0 = time.perf_counter()
             dg = scheduler.execute([scheduler.LaunchSpec(code, grid, bd,
                                                          g0.copy())],
@@ -247,8 +279,9 @@ def phase_main_path(launches):
                     raise AssertionError("matmul cycles per block != 83968")
                 if n_sm == 1 and rep.per_sm_cycles.tolist() != [21_501_952]:
                     raise AssertionError("matmul per-SM cycles != 21501952")
-            log(f"[main path] {name} n={n} n_sm={n_sm}: oracle ok, per-SM "
-                f"cycles {rep.per_sm_cycles.tolist()} == analytical, "
+            vs = "every field == plain path (CPU), " if name in plain else ""
+            log(f"[main path] {name} n={n} n_sm={n_sm}: oracle ok, {vs}"
+                f"per-SM cycles {rep.per_sm_cycles.tolist()} == analytical, "
                 f"cycles/block {sorted(set(res2.cycles_per_block.tolist()))}"
                 f", steps/block max {int(dg.block_steps().max())}, wall "
                 f"{walls[f'{name}/run_grid/n_sm={n_sm}'] * 1e3:.1f} ms")
@@ -296,8 +329,15 @@ def time_simt_alu(rng, launches_on_path, max_err):
                 max_abs_err=max_err, library_ms=None, **out[8])
 
 
+#: cycles a block may run in the budgeted comparison on the card (about
+#: 110 of matmul's 2286 steps)
+PLAIN_CARD_BUDGET = 4000
+
+
 def time_fused(launches_on_path):
-    """One dispatch group of the main path: 8 matmul n=256 blocks."""
+    """One dispatch group of the main path, 8 matmul n=256 blocks: the
+    kernel on the card against the plain version on the host CPU, whole,
+    and against the plain version on the card over a cycle budget."""
     from repro_torch.core.machine import MachineConfig
     from repro_torch.core.pipeline.fused import (C_STEPS, fused_sm_run,
                                                  staged_run)
@@ -305,32 +345,44 @@ def time_fused(launches_on_path):
     from repro_torch.runtime import registry as reg
     mod, n, P = ALL["matmul"], 256, 8
     cfg = MachineConfig()
-    code = torch.as_tensor(mod.build(n)).cuda()[None].contiguous()
+    code = torch.as_tensor(mod.build(n))[None].contiguous()
     g0 = mod.make_gmem(np.random.default_rng(4), n)
     G = reg.bucket_gmem_len(len(g0))
-    gmem = torch.zeros((P, G), dtype=torch.int32, device="cuda")
-    gmem[:, :len(g0)] = torch.as_tensor(g0).cuda()
+    gmem = torch.zeros((P, G), dtype=torch.int32)
+    gmem[:, :len(g0)] = torch.as_tensor(g0)
     (gx, gy), (bdx, bdy) = mod.launch(n)
     geom = np.array([[0, bdx * bdy, bdx, bdy, p % gx, p // gx, gx, gy]
                      for p in range(P)], np.int32)
-    work = gmem.clone()
+    code_d, gmem_d = code.cuda(), gmem.cuda()
+    work = gmem_d.clone()
 
     def kernel():
-        work.copy_(gmem)
-        return fused_sm_run(cfg, 8, code, geom, work)
+        work.copy_(gmem_d)
+        return fused_sm_run(cfg, 8, code_d, geom, work)
 
-    k_ms = cuda_ms(kernel, 5) - cuda_ms(lambda: work.copy_(gmem), 5)
-    mem_k, wrt_k, ctr_k = fused_sm_run(cfg, 8, code, geom, gmem.clone())
+    def max_err(got, want):
+        return max((a.cpu().long() - b.cpu().long()).abs().max().item()
+                   for a, b in zip(got, want))
+
+    k_ms = cuda_ms(kernel, 5) - cuda_ms(lambda: work.copy_(gmem_d), 5)
+    mem_k, wrt_k, ctr_k = fused_sm_run(cfg, 8, code_d, geom, gmem_d.clone())
+    t0 = time.perf_counter()
+    plain = staged_run(replace(cfg, execute_backend="torch"), 8, code, geom,
+                       gmem.clone())
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_err((mem_k, wrt_k, ctr_k), plain)
+    # the plain version on the card, over PLAIN_CARD_BUDGET cycles a block
+    bcfg = replace(cfg, max_cycles=PLAIN_CARD_BUDGET)
+    short_k = fused_sm_run(bcfg, 8, code_d, geom, gmem_d.clone())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mem_p, wrt_p, ctr_p = staged_run(replace(cfg, execute_backend="torch"),
-                                     8, code, geom, gmem.clone())
+    short_p = staged_run(replace(bcfg, execute_backend="torch"), 8, code_d,
+                         geom, gmem_d.clone())
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max((a.long() - b.long()).abs().max().item()
-              for a, b in ((mem_k, mem_p), (wrt_k, wrt_p), (ctr_k, ctr_p)))
+    card_plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(err, max_err(short_k, short_p))
     if err:
-        raise AssertionError("fused_sm_run != staged_run on the card")
+        raise AssertionError("fused_sm_run != staged_run")
     words = P * G
     nbytes = (code.numel() + geom.size + 3 * words
               + ctr_k.numel()) * 4          # gmem in; gmem, gw, counters out
@@ -338,10 +390,16 @@ def time_fused(launches_on_path):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, lane_ops / INT32_OPS_PER_S
     bound = max(t_bytes, t_ops) * 1e3
     steps = int(ctr_k[:, C_STEPS].max().item())
+    short_steps = int(short_p[2][:, C_STEPS].max().item())
     log(f"[timing] fused_sm_run matmul n=256, {P} blocks x 8 warps, {steps} "
         f"steps each: {k_ms:.3f} ms per launch ({k_ms / steps * 1e3:.3f} "
-        f"us per step), plain staged path on the card {plain_ms:.1f} ms, "
-        f"bound {bound:.6f} ms ({nbytes} B, {lane_ops} lane-instructions)")
+        f"us per step); plain staged path on the host CPU {plain_ms:.1f} ms "
+        f"(bit-exact); bound {bound:.6f} ms ({nbytes} B, {lane_ops} "
+        f"lane-instructions)")
+    log(f"[timing] plain staged path on the card, first {short_steps} steps "
+        f"(max_cycles={PLAIN_CARD_BUDGET}), bit-exact with the kernel: "
+        f"{card_plain_ms:.1f} ms, {card_plain_ms / short_steps:.3f} ms per "
+        f"step of the group (kernel: {k_ms / steps * 1e3:.3f} us)")
     return dict(name="fused_sm_run", route="cuda",
                 source="src/repro_torch/csrc/fused_sm.cu",
                 replaces=FUSED_REPLACES, launches=launches_on_path,

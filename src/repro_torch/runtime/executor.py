@@ -19,9 +19,11 @@ of its blocks' cycles)``.  The schedule is executed:
   (``BLOCK_SCHED_OVERHEAD`` per block), cross-checked against the
   analytical replay :meth:`GridResult.per_sm_cycles`.
 
-Differences from the JAX package: a group's padding positions are not run
-(they never reach a result there either); the per-SM accumulator is int64
-rather than split hi/lo int32 lanes, so it has no blocks-per-SM bound.
+Differences from the JAX package, none of which changes a result: there
+is no jit-shape cache to feed, so neither the launch count nor the SM width
+is padded to a bucket, and a group's padding positions are not run; the
+per-SM accumulator is int64 rather than split hi/lo int32 lanes, so it has
+no blocks-per-SM bound.
 Sharding across devices, ``TransferLog`` and the tracing spans wait.
 """
 from __future__ import annotations
@@ -42,13 +44,6 @@ from .registry import Module, ModuleRegistry
 # Cycles the block scheduler spends dispatching one block (parameter pass,
 # register-file id init — §3.1 "initializes registers ... with thread IDs").
 BLOCK_SCHED_OVERHEAD = 24
-
-#: Launch-batch-width buckets (kept so padded shapes match the reference).
-LAUNCH_BUCKETS = (1, 2, 4, 8, 16, 32)
-
-
-def bucket_launches(n: int) -> int:
-    return reg.bucket(n, LAUNCH_BUCKETS, 32)
 
 
 class GridResult(NamedTuple):
@@ -85,27 +80,6 @@ class MultiSMReport(NamedTuple):
     useful_gmem_words: int = 0  # words the launches actually asked for
     max_sp: int = 0             # warp-stack high-water mark (max over blocks)
     overflow: bool = False      # any block's warp stack overflowed
-
-    @property
-    def kernel_cycles(self) -> int:
-        """Makespan of this dispatch: the busiest SM's cycles."""
-        return int(self.per_sm_cycles.max())
-
-    @property
-    def busy_cycles(self) -> int:
-        """Total SM-cycles of real work (sum over SMs)."""
-        return int(self.per_sm_cycles.sum())
-
-    @property
-    def padded_gmem_words(self) -> int:
-        """Memory the bucketing wasted: allocation minus requested words."""
-        return self.device_gmem_words - self.useful_gmem_words
-
-    @property
-    def occupancy(self) -> float:
-        """Fraction of SM-step slots holding a real (non-padding) block."""
-        slots = self.n_steps * self.n_sm
-        return self.n_blocks / slots if slots else 0.0
 
 
 class LaunchSpec(NamedTuple):
@@ -144,7 +118,7 @@ class DeviceGrid:
                  sm_cyc: torch.Tensor, n_sm: int, n_steps: int,
                  launch_offsets: Sequence[int], launch_blocks: Sequence[int],
                  orig_lens: Sequence[int]):
-        self._gmems = gmems              # (L_bucket, G) int32
+        self._gmems = gmems              # (L, G) int32
         self._ctr = ctr                  # (n_blocks, N_CTR) int32
         self._sm_cyc = sm_cyc            # (n_sm,) int64
         self.n_sm = n_sm
@@ -202,32 +176,24 @@ class DeviceGrid:
 
 def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
             cfg: MachineConfig = MachineConfig(), chunk: int = 8,
-            pad_warps: Optional[int] = None,
-            registry: Optional[ModuleRegistry] = None,
             device="cuda") -> DeviceGrid:
     """Execute the blocks of ``launches`` round-robin across ``n_sm`` SMs.
 
     Blocks may not communicate (true of the paper's benchmarks); write
     sets merge in global block order after each dispatch group.  ``chunk``
     bounds the positions per group (rounded to a multiple of ``n_sm``).
-    ``pad_warps`` forces the SM width.  Runs on the card unless
-    ``device="cpu"``; without a card it raises.
+    The SM is as wide as the widest launch's block.  Runs on the card
+    unless ``device="cpu"``; without a card it raises.
     """
     dev = resolve_device(device)
     if not launches:
         raise ValueError("execute() needs at least one launch")
-    registry = registry or _default_registry
-    mods = [registry.as_module(l.code) for l in launches]
+    mods = [_default_registry.as_module(l.code) for l in launches]
     code_len = max(m.padded_len for m in mods)
-    n_l = len(launches)
-    l_bucket = bucket_launches(n_l)
-
-    codes = np.zeros((l_bucket, code_len, isa.NUM_FIELDS), np.int32)
-    codes[:, :, isa.F_OP] = isa.EXIT      # padding launches trap to EXIT
+    codes = np.stack([reg.pad_code(m.code, code_len) for m in mods])
     orig_lens, pos_l, offsets, nblocks = [], [], [], []
     for i, (launch, mod) in enumerate(zip(launches, mods)):
         bdx, bdy = _norm_block_dim(launch.block_dim)
-        codes[i] = reg.pad_code(mod.code, code_len)
         orig_lens.append(int(launch.gmem.shape[0]))
         bxys = _block_positions(launch.grid)
         if len(bxys) == 0:
@@ -244,16 +210,12 @@ def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
         pos_l.append(rows)
 
     g_width = reg.bucket_gmem_len(max(orig_lens))
-    gmems = torch.zeros((l_bucket, g_width), dtype=torch.int32, device=dev)
+    gmems = torch.zeros((len(launches), g_width), dtype=torch.int32,
+                        device=dev)
     for i, launch in enumerate(launches):
         gmems[i, :orig_lens[i]] = as_int32(launch.gmem, dev)
 
-    warps_needed = max(warps_for(l.block_dim) for l in launches)
-    n_warps = pad_warps or warps_needed
-    if n_warps < warps_needed:
-        raise ValueError(
-            f"pad_warps={pad_warps} < {warps_needed} warps required by the "
-            "widest launch — threads beyond the padding would never run")
+    n_warps = max(warps_for(l.block_dim) for l in launches)
     geom_all = np.concatenate(pos_l)
     n_blocks = len(geom_all)
 

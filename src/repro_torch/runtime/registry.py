@@ -31,9 +31,6 @@ CODE_BUCKETS = (64, 96, 128, 192, 256)
 #: Smallest global-memory allocation; sizes round up to powers of two.
 GMEM_MIN_WORDS = 64
 
-#: SM-width buckets: pow2 up to 8 warps, then multiples of 8.
-WARP_BUCKETS = (1, 2, 4, 8)
-
 
 def bucket(n: int, table, step: int) -> int:
     """Smallest table bucket holding ``n``; beyond the table, the next
@@ -55,11 +52,6 @@ def bucket_gmem_len(n_words: int) -> int:
     while b < n_words:
         b *= 2
     return b
-
-
-def bucket_warps(n_warps: int) -> int:
-    """SM-width bucket: pow2 up to 8 warps, then multiples of 8."""
-    return bucket(n_warps, WARP_BUCKETS, 8)
 
 
 def pad_code(code: np.ndarray, pad_to: Optional[int] = None) -> np.ndarray:
