@@ -35,14 +35,30 @@ Phases, each printed as it ends:
 7. timings: each kernel's time at the shape its path gives it, its plain
    version's time on the same inputs (``simt_alu``'s on the card; the
    fused kernel's on the host CPU, plus the plain path on the card over a
-   cycle budget), and its bound.
+   cycle budget), and its bound;
+8. ``flash_attention`` and ``matmul`` against their plain versions on the
+   card: the sweep of ``tests/test_kernels.py`` plus a ragged length
+   (S=200), large logits, and the model's strided GQA call; matmul at the
+   sweep's shapes and at ``kernel_micro``'s 512x512 float32 with 128
+   tiles, through ``ops.matmul`` (that call is the matmul kernel's path);
+9. the LM serving path: ``repro_torch.launch.serve.main`` serves
+   qwen3-0.6b at full width (28 layers, random bf16 weights from seed 0):
+   batch 4, prompts of 512 and 200 tokens, 32 new tokens each, with one
+   flash launch per layer in each prefill; then the prefill step with the
+   kernel and with the plain attention on the same weights and prompt,
+   compared per layer and end to end, the same measures read for two
+   planted faults, and the prefill and decode times;
+10. the flash and matmul kernels timed at their paths' shapes beside the
+   plain version, one PyTorch library call, and the bound.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on the card
-named in the output, beside its power limit.
+named in the output, beside its power limit; serving times are host
+clocks around work that ends in a device sync.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -59,10 +75,31 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT32_OPS_PER_S = 67e12     # H100 SXM 32-bit non-tensor peak (fp32 rate)
+#: H100 SXM dense peaks by input dtype: bf16 on the tensor cores, float32
+#: on the fp32 cores (the kernels never use TF32)
+PEAK_FLOPS = {torch.bfloat16: (989e12, "bf16 tensor-core 989 TFLOP/s"),
+              torch.float32: (67e12, "fp32 non-tensor 67 TFLOP/s")}
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 EDGES = [0, 1, -1, INT32_MIN, INT32_MAX, 31, 32, -32, 2, 0x55555555]
 SIMT_REPLACES = "src/repro/kernels/simt_alu.py:115"
 FUSED_REPLACES = "src/repro/core/pipeline/fused.py:116"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:66"
+MATMUL_REPLACES = "src/repro/kernels/matmul.py:35"
+#: the serving path: qwen3-0.6b at full width, as a user runs it
+SERVE_ARGS = ["--arch", "qwen3-0.6b", "--batch", "4", "--gen", "32",
+              "--seed", "0"]
+PROMPTS = (512, 200)
+#: the prefill with the flash kernel against the same step with the plain
+#: attention (``mha_ref`` in the flash wrapper's place).  The guard is the
+#: per-layer check: every layer's kernel output against the plain version
+#: on the same inputs within the kernel's bf16 tolerance (3e-2,
+#: tests/test_kernels.py).  End to end, the last-position logits and each
+#: layer's KV cache within a relative Frobenius error of 5e-2 is a sanity
+#: bound only: the kernel rounds P to bf16 before the PV product, as the
+#: TPU kernel does, and the plain version does not, a 1-ulp difference in
+#: some outputs of every layer that 28 layers compound.  Two planted
+#: faults are read against both measures (``planted``)
+LAYER_TOL, LM_REL_TOL = 3e-2, 5e-2
 
 
 def log(*a):
@@ -408,6 +445,356 @@ def time_fused(launches_on_path):
                 library_ms=None)
 
 
+# ------------------------------------------------------------ phase 8
+def rand(g, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def close(got, want, tol, tag):
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol, msg=lambda m: f"{tag}: {m}")
+    return err
+
+
+def phase_flash_vs_plain():
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_gqa)
+    from repro_torch.kernels.ref import flash_attention_ref, mha_ref
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cases = [(256, 256, 64, True), (256, 256, 128, True),
+             (128, 512, 64, False), (512, 512, 64, True),
+             (200, 200, 128, True), (200, 200, 64, False)]
+    by_dtype = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for Sq, Sk, dh, causal in cases:
+        for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
+            q, k, v = (rand(g, (3, s, dh), dtype) for s in (Sq, Sk, Sk))
+            got = flash_attention(q, k, v, causal=causal)
+            want = flash_attention_ref(q, k, v, causal=causal)
+            by_dtype[dtype] = max(by_dtype[dtype], close(
+                got, want, tol, f"flash {Sq}x{Sk}x{dh} causal={causal} "
+                f"{dtype}"))
+    max_err = max(by_dtype.values())
+    # large logits (q, k scaled by 30): tolerance 1e-2
+    q, k = (rand(g, (1, 256, 64), torch.float32, 30) for _ in range(2))
+    v = rand(g, (1, 256, 64), torch.float32)
+    got = flash_attention(q, k, v, causal=True)
+    if not torch.isfinite(got).all():
+        raise AssertionError("flash: non-finite output at large logits")
+    max_err = max(max_err, close(got, flash_attention_ref(q, k, v), 1e-2,
+                                 "flash large logits"))
+    # the model's call: GQA heads, keys a prefix of a longer bf16 cache
+    q = rand(g, (4, 512, 16, 128), torch.bfloat16)
+    ck, cv = (rand(g, (4, 544, 8, 128), torch.bfloat16) for _ in range(2))
+    got = flash_attention_gqa(q, ck[:, :512], cv[:, :512], causal=True)
+    max_err = max(max_err, close(got, mha_ref(q, ck[:, :512], cv[:, :512]),
+                                 3e-2, "flash GQA cache prefix"))
+    log(f"[flash_attention] vs flash_attention_ref: {2 * len(cases) + 2} "
+        f"cases (the test_kernels sweep, S=200, large logits, GQA cache "
+        f"prefix) within tolerance (f32 2e-3, bf16 3e-2, large 1e-2); "
+        f"max_abs_err {max_err:.3e} (sweep f32 "
+        f"{by_dtype[torch.float32]:.3e}, bf16 {by_dtype[torch.bfloat16]:.3e})")
+    return max_err
+
+
+def phase_matmul_vs_plain(launches):
+    """The sweep, then the matmul kernel's path: ``ops.matmul`` at
+    ``kernel_micro``'s shape, 512x512 float32 with 128 tiles."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref
+    g = torch.Generator(device="cuda").manual_seed(6)
+    by_dtype = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for M, K, N in ((128, 128, 128), (256, 384, 128), (384, 128, 256)):
+        for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
+            a, b = rand(g, (M, K), dtype), rand(g, (K, N), dtype)
+            got = ops.matmul(a, b, bm=128, bn=128, bk=128)
+            by_dtype[dtype] = max(by_dtype[dtype], close(
+                got, matmul_ref(a, b), tol, f"matmul {M}x{K}x{N} {dtype}"))
+    a, b = (rand(g, (512, 512), torch.float32) for _ in range(2))
+    launches.clear()
+    got = ops.matmul(a, b, bm=128, bn=128, bk=128)
+    counts = dict(launches)
+    if counts != {"matmul": 1}:
+        raise AssertionError(f"ops.matmul path launched {counts}")
+    path_err = close(got, matmul_ref(a, b), 1e-3, "matmul 512x512 f32")
+    max_err = max(path_err, *by_dtype.values())
+    log(f"[matmul] vs matmul_ref: 7 cases within tolerance (f32 1e-3, bf16 "
+        f"2e-2); max_abs_err {max_err:.3e} (f32 "
+        f"{max(path_err, by_dtype[torch.float32]):.3e}, bf16 "
+        f"{by_dtype[torch.bfloat16]:.3e}, one bf16 ulp of outputs near "
+        f"20); ops.matmul 512x512 f32 path launches {counts}")
+    return counts["matmul"], max_err, (a, b)
+
+
+# ------------------------------------------------------------ phase 9
+def prefill(params, spec, prompt, max_seq):
+    """The serving prefill step: (B, P) tokens at cache index 0."""
+    from repro_torch.models import api
+    state = api.decode_state(spec, prompt.shape[0], max_seq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, state = api.apply_decode(params, spec, prompt, state, 0)
+    torch.cuda.synchronize()
+    return logits[:, -1].clone(), state, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def flash_swapped(fn):
+    """Run the enclosed code with ``fn`` in the place of the flash wrapper
+    that ``ops.mha`` calls."""
+    from repro_torch.kernels import flash_attention as fa
+    real = fa.flash_attention_gqa
+    fa.flash_attention_gqa = fn
+    try:
+        yield
+    finally:
+        fa.flash_attention_gqa = real
+
+
+def plain_attention():
+    """The prefill's attention as the plain version (no launch)."""
+    from repro_torch.kernels.ref import mha_ref
+    return flash_swapped(mha_ref)
+
+
+@contextlib.contextmanager
+def per_layer_check(errs, fn=None, tol=LAYER_TOL):
+    """Hold every flash call of the enclosed run (the kernel, or ``fn``)
+    against the plain version on the same inputs, within ``tol`` (None:
+    record the error only).  The plain calls are not counted: the wrapper
+    counts only its own launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import mha_ref
+    run = fn or fa.flash_attention_gqa
+
+    def checked(q, k, v, *, causal=True):
+        out = run(q, k, v, causal=causal)
+        want = mha_ref(q, k, v, causal=causal)
+        errs.append(close(out, want, tol, f"layer {len(errs)}")
+                    if tol is not None else
+                    (out.float() - want.float()).abs().max().item())
+        return out
+
+    with flash_swapped(checked):
+        yield
+
+
+def planted(q, k, v, *, causal=True, fault):
+    """Plain GQA attention with a planted fault, to read what the checks
+    see of one: ``"bf16_scores"`` rounds the scores to bf16 before the
+    softmax; ``"dropped_tile"`` drops keys 0-63 (the kernel's first KV
+    tile) for every query past them."""
+    rep = q.shape[2] // k.shape[2]
+    k, v = (x.repeat_interleave(rep, 2).float() for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * q.shape[-1] ** -0.5
+    if fault == "bf16_scores":
+        s = s.to(torch.bfloat16).float()
+    Sq, Sk = s.shape[-2:]
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    kj = torch.arange(Sk, device=q.device)[None, :]
+    masked = (kj > qi) if causal else torch.zeros_like(kj > qi)
+    if fault == "dropped_tile":
+        masked = masked | ((kj < 64) & (qi >= 64))
+    p = s.masked_fill(masked, float("-inf")).softmax(-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+
+def rel_err(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def device_profile(fn):
+    """Device time (ms), kernel launches and the three costliest kernels
+    of one run of ``fn``, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:3]
+    return dev_us / 1e3, launches, "; ".join(
+        f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+        for e in top)
+
+
+def phase_serving(launches):
+    """``serve.main`` at full width, then the prefill step with and
+    without the flash kernel on the same weights and prompt, decode, and
+    a device profile of one prefill and of three decode steps."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import api
+    spec = configs.get("qwen3-0.6b")
+    cfg, B, G = spec.cfg, 4, 32
+    flash_launches = None
+    for P in PROMPTS:
+        launches.clear()
+        t0 = time.perf_counter()
+        gen = serve.main(SERVE_ARGS + ["--prompt-len", str(P)])
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+        if counts != {"flash_attention": cfg.n_layers}:
+            raise AssertionError(f"serve P={P}: launches {counts}, want "
+                                 f"{cfg.n_layers} flash_attention")
+        if gen.shape != (B, G) or gen.min() < 0 or gen.max() >= cfg.vocab:
+            raise AssertionError(f"serve P={P}: tokens {gen.shape}")
+        flash_launches = flash_launches or counts["flash_attention"]
+        log(f"[serve] main P={P}: {gen.shape} tokens in [0, {cfg.vocab}), "
+            f"wall {wall:.1f} s, launches {counts}")
+
+        params = api.init(torch.Generator(device="cuda").manual_seed(0),
+                          spec)
+        prompt = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (B, P)), device="cuda")
+        errs = []
+        with per_layer_check(errs):
+            prefill(params, spec, prompt, P + G)
+        if len(errs) != cfg.n_layers:
+            raise AssertionError(f"prefill P={P}: {len(errs)} flash calls")
+        lk, sk, k_ms = prefill(params, spec, prompt, P + G)
+        with plain_attention():
+            lp, sp, p_ms = prefill(params, spec, prompt, P + G)
+
+        def against_plain(logits, state):
+            return rel_err(logits, lp), max(
+                rel_err(a[layer, :, :P], b[layer, :, :P])
+                for a, b in zip(state["kv"], sp["kv"])
+                for layer in range(cfg.n_layers))
+
+        logit_rel, cache_rel = against_plain(lk, sk)
+        logit_abs = (lk - lp).abs().max().item()
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        if not (logit_rel <= LM_REL_TOL and cache_rel <= LM_REL_TOL):
+            raise AssertionError(f"prefill P={P}: logits relative error "
+                                 f"{logit_rel}, caches {cache_rel}")
+        log(f"[serve] prefill P={P} B={B}: every layer's flash output "
+            f"within {LAYER_TOL} of the plain version (max "
+            f"{max(errs):.3e}); vs the plain attention end to end: "
+            f"logits relative {logit_rel:.3e} (max abs {logit_abs:.3e}), "
+            f"caches relative <= {cache_rel:.3e} (tol {LM_REL_TOL}); "
+            f"greedy token agreement {agree:.2f}")
+        if P == PROMPTS[0]:
+            for fault in ("bf16_scores", "dropped_tile"):
+                ferrs = []
+                with per_layer_check(ferrs, partial(planted, fault=fault),
+                                     tol=None):
+                    lf, sf, _ = prefill(params, spec, prompt, P + G)
+                f_logit, f_cache = against_plain(lf, sf)
+                log(f"[serve] planted fault {fault} P={P}: per-layer max "
+                    f"abs error {max(ferrs):.3e} (guard {LAYER_TOL}); vs "
+                    f"the plain attention end to end: logits relative "
+                    f"{f_logit:.3e}, caches relative <= {f_cache:.3e} "
+                    f"(sanity bound {LM_REL_TOL})")
+                del lf, sf
+        del sp, lp
+        # decode: 32 steps from the kernel prefill's state
+        step = build_serve_step(spec)
+        tok, state = lk.argmax(-1).to(torch.int32), sk
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(G):
+            tok, state = step(params, state, tok[:, None], P + i)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        log(f"[serve] P={P} B={B}: prefill {k_ms:.1f} ms with the kernel "
+            f"({B * P / k_ms * 1e3:.0f} tok/s), {p_ms:.1f} ms with the plain "
+            f"attention; decode {G} steps {dec_s * 1e3:.1f} ms "
+            f"({dec_s / G * 1e3:.2f} ms a step, {B * G / dec_s:.1f} tok/s)")
+        if P == PROMPTS[0]:
+            pre = device_profile(
+                lambda: prefill(params, spec, prompt, P + G))
+            state = api.decode_state(spec, B, P + G)
+            step(params, state, prompt, 0)
+
+            def three_steps():
+                t = tok
+                for i in range(3):
+                    t, _ = step(params, state, t[:, None], P + i)
+
+            dec = device_profile(three_steps)
+            step_ms = dec_s / G * 1e3
+            log(f"[profile] prefill P={P}: device {pre[0]:.2f} ms, "
+                f"{pre[1]} launches; busy {pre[0] / k_ms:.2f} of the "
+                f"unprofiled {k_ms:.1f} ms; top: {pre[2]}")
+            log(f"[profile] decode: device {dec[0] / 3:.2f} ms and "
+                f"{dec[1] / 3:.0f} launches a step; busy "
+                f"{dec[0] / 3 / step_ms:.2f} of the unprofiled {step_ms:.2f} "
+                f"ms; top over 3 steps: {dec[2]}")
+        del params, sk, state, lk
+        torch.cuda.empty_cache()
+    return flash_launches
+
+
+# ------------------------------------------------------------ phase 10
+def bound(nbytes, flops, dtype):
+    peak, name = PEAK_FLOPS[dtype]
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", \
+        name
+
+
+def time_flash(launches_on_path, max_err):
+    """The prefill's call: B 4, S 512, 16 query heads on 8 KV heads, dh
+    128, bf16, causal."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.kernels.ref import mha_ref
+    B, S, H, KH, dh = 4, 512, 16, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = rand(g, (B, S, H, dh), torch.bfloat16)
+    k, v = (rand(g, (B, S, KH, dh), torch.bfloat16) for _ in range(2))
+    ms = cuda_ms(lambda: flash_attention_gqa(q, k, v, causal=True), 50)
+    plain_ms = cuda_ms(lambda: mha_ref(q, k, v, causal=True), 10)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = partial(F.scaled_dot_product_attention, qh, kh, vh,
+                  is_causal=True, enable_gqa=True)
+    lib_ms = cuda_ms(lib, 50)
+    lib_err = (lib().transpose(1, 2).float()
+               - flash_attention_gqa(q, k, v).float()).abs().max().item()
+    nbytes = 2 * (2 * B * S * H * dh + 2 * B * S * KH * dh)
+    flops = 4 * dh * B * H * (S * (S + 1) // 2)   # QK^T and PV, causal
+    bound_ms, by, peak = bound(nbytes, flops, torch.bfloat16)
+    log(f"[timing] flash_attention B={B} S={S} H={H}/{KH} dh={dh} bf16 "
+        f"causal: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {lib_ms:.4f} ms (max diff "
+        f"{lib_err:.2e}); bound {bound_ms:.5f} ms ({nbytes} B, {flops} "
+        f"FLOP, {by}; peak {peak})")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces=FLASH_REPLACES, launches=launches_on_path,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+
+def time_matmul(launches_on_path, max_err, ab):
+    """``kernel_micro``'s call: 512x512 float32, 128 tiles."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref
+    a, b = ab
+    ms = cuda_ms(lambda: ops.matmul(a, b, bm=128, bn=128, bk=128), 200)
+    plain_ms = cuda_ms(lambda: matmul_ref(a, b), 200)
+    lib_ms = cuda_ms(lambda: torch.matmul(a, b), 200)
+    M, K = a.shape
+    N = b.shape[1]
+    nbytes, flops = 4 * (M * K + K * N + M * N), 2 * M * N * K
+    bound_ms, by, peak = bound(nbytes, flops, torch.float32)
+    log(f"[timing] matmul {M}x{K}x{N} f32: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms; bound "
+        f"{bound_ms:.5f} ms ({nbytes} B, {flops} FLOP, {by}; peak {peak})")
+    return dict(name="matmul", route="cuda",
+                source="src/repro_torch/csrc/matmul.cu",
+                replaces=MATMUL_REPLACES, launches=launches_on_path,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from the repository (src/repro_torch "
@@ -426,6 +813,8 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
 
+    # the plain versions' float32 products in full float32, as the kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import _build
     _build.load()
     regs = [l.strip() for l in _build.BUILD_INFO["ptxas"].splitlines()
@@ -440,6 +829,11 @@ def main() -> int:
     fused_launches, _ = phase_main_path(_build.LAUNCHES)
     kernels = [time_simt_alu(rng, alu_launches, alu_err),
                time_fused(fused_launches)]
+    flash_err = phase_flash_vs_plain()
+    mm_launches, mm_err, mm_inputs = phase_matmul_vs_plain(_build.LAUNCHES)
+    flash_launches = phase_serving(_build.LAUNCHES)
+    kernels += [time_flash(flash_launches, flash_err),
+                time_matmul(mm_launches, mm_err, mm_inputs)]
     log(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

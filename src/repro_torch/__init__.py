@@ -7,5 +7,7 @@ and the multi-SM executor (:mod:`repro_torch.runtime.executor`) packs
 blocks round-robin over SMs.  On an NVIDIA Hopper card the default
 ``execute_backend="cuda_fused"`` runs each dispatch group as one
 hand-written CUDA kernel; ``device="cpu"`` runs the plain PyTorch
-versions.  Nothing here imports ``jax`` or ``repro``.
+versions.  The dense LM serving path (:mod:`repro_torch.launch.serve`)
+runs its prefill attention through the flash-attention kernel.  Nothing
+here imports ``jax`` or ``repro``.
 """

@@ -1,0 +1,80 @@
+"""Architecture registry of the port (a copy of ``repro.configs``).
+
+Each module exposes ``SPEC: ArchSpec``.  ``get(name)`` returns it;
+``reduced(spec)`` builds the same-family small config for CPU tests.
+Only qwen3-0.6b, the dense decoder the serving path runs, is ported so
+far; ``get`` of any other architecture of ``ARCH_IDS`` raises "not yet
+ported".
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, Optional, Tuple
+
+ARCH_IDS = (
+    "mamba2_130m", "zamba2_1p2b", "smollm_360m", "qwen3_0p6b",
+    "llama3p2_3b", "yi_6b", "paligemma_3b", "kimi_k2", "dbrx_132b",
+    "whisper_medium", "flexgrip",
+)
+#: the architectures whose modules the port has
+PORTED = ("qwen3_0p6b",)
+
+# assigned input shapes (LM family): name -> (seq_len, global_batch, kind)
+SHAPES: Dict[str, Tuple[int, int, str]] = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    name: str
+    family: str              # dense | moe | ssm | hybrid | vlm | audio | overlay
+    cfg: object
+    # shape-name -> None (runnable) or a skip reason string
+    skips: Optional[Dict[str, str]] = None
+    source: str = ""
+
+    def skip_reason(self, shape: str) -> Optional[str]:
+        return (self.skips or {}).get(shape)
+
+
+_cache: Dict[str, ArchSpec] = {}
+
+
+def get(name: str) -> ArchSpec:
+    key = name.replace("-", "_").replace(".", "p")
+    if key not in PORTED:
+        if key in ARCH_IDS:
+            raise NotImplementedError(
+                f"architecture {name!r} is not yet ported to repro_torch "
+                f"(ported: {', '.join(PORTED)})")
+        raise KeyError(f"unknown architecture {name!r}")
+    if key not in _cache:
+        mod = importlib.import_module(f"repro_torch.configs.{key}")
+        _cache[key] = mod.SPEC
+    return _cache[key]
+
+
+# Shared skip reasons
+SKIP_QUADRATIC = ("pure full-attention arch: a 524k dense-attention decode "
+                  "is O(S^2) prefill / O(S) per-step KV with no "
+                  "sub-quadratic path; run for SSM/hybrid only "
+                  "(DESIGN.md §5)")
+
+
+def reduced(spec: ArchSpec) -> ArchSpec:
+    """Same-family tiny config for CPU tests (dense family only)."""
+    from repro_torch.models.transformer import LMConfig
+
+    c = spec.cfg
+    if spec.family != "dense":
+        raise NotImplementedError(
+            f"reduced() of the {spec.family!r} family is not yet ported")
+    small = LMConfig(name=c.name + "-smoke", n_layers=2, d_model=64,
+                     n_heads=4, n_kv=max(1, c.n_kv * 4 // c.n_heads),
+                     d_ff=128, vocab=256, head_dim=16, qk_norm=c.qk_norm)
+    return dataclasses.replace(spec, cfg=small)

@@ -29,12 +29,17 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel name -> launches since the last ``LAUNCHES.clear()``
 LAUNCHES: collections.Counter = collections.Counter()
+
+#: dtype codes of the C entries that take float32 or bfloat16 tensors
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: what the last build did: seconds, library path, ptxas report
 BUILD_INFO: dict = {}
@@ -118,6 +123,12 @@ def load() -> ctypes.CDLL:
         lib.fused_sm_run_launch.restype = i
         lib.fused_sm_smem_bytes.argtypes = [i] * 5
         lib.fused_sm_smem_bytes.restype = ctypes.c_long
+        lib.flash_attention_launch.argtypes = (
+            [p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [i] * 6
+            + [ctypes.c_float, i, i, p])
+        lib.flash_attention_launch.restype = i
+        lib.matmul_launch.argtypes = [p] * 3 + [i] * 4 + [p]
+        lib.matmul_launch.restype = i
         _lib = lib
     return _lib
 
@@ -130,5 +141,4 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_ptr(tensor) -> int:
-    import torch
     return torch.cuda.current_stream(tensor.device).cuda_stream

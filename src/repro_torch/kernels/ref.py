@@ -7,6 +7,9 @@ execute backend, and what ``chip_smoke.py`` holds the kernels against on
 the card.  Arithmetic is carried in int64 and wrapped to int32, so the
 two's-complement overflow of IADD/ISUB/IMUL/IMAD and of the ISETP
 difference is exact on every device.
+
+``matmul_ref`` and ``flash_attention_ref`` are the plain versions of the
+CUDA ``matmul`` and ``flash_attention`` kernels, in float32.
 """
 from __future__ import annotations
 
@@ -60,3 +63,48 @@ def simt_alu_ref(op, s1, s2, s3, cond, s2r, mask, *,
     m = mask != 0
     return (torch.where(m, res, 0).to(torch.int32),
             torch.where(m & (opb == isa.ISETP), nib, 0).to(torch.int32))
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) with a float32 accumulator; dtype follows ``a``.
+    bf16 products are exact in float32, so this is bf16-in, fp32-sum."""
+    return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """Plain version of the flash-attention kernel (float32 softmax).
+
+    q (BH, Sq, dh), k/v (BH, Sk, dh) -> (BH, Sq, dh) in q's dtype.  Under
+    ``causal``, query i sees key j when ``i + q_offset >= j``: the
+    Pallas kernel and the CUDA kernel align top-left (``q_offset=0``);
+    the JAX package's oracle aligns bottom-right (``q_offset=Sk-Sq``),
+    which is what ``ops.mha`` gives the shapes that do not tile.  The two
+    agree when ``Sq == Sk``.
+    """
+    Sq, dh = q.shape[1], q.shape[2]
+    Sk = k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * dh ** -0.5
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        mask = qi >= torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(mask[None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def mha_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """Plain GQA attention in the model's layout: q (B, Sq, H, dh), k/v
+    (B, Sk, KH, dh) -> (B, Sq, H, dh).  Folds (B, H) into one axis and
+    repeats each KV head H // KH times, as the JAX package's ``ops.mha``
+    does, then :func:`flash_attention_ref`."""
+    B, Sq, H, dh = q.shape
+    Sk, rep = k.shape[1], H // k.shape[2]
+
+    def fold(x, n):
+        return x.transpose(1, 2).repeat_interleave(rep, dim=1) \
+            .reshape(B * H, n, dh)
+
+    of = flash_attention_ref(q.transpose(1, 2).reshape(B * H, Sq, dh),
+                             fold(k, Sk), fold(v, Sk), causal=causal,
+                             q_offset=q_offset)
+    return of.reshape(B, H, Sq, dh).transpose(1, 2)

@@ -1,0 +1,26 @@
+"""Carry the JAX package's parameters (or decode state) into the port.
+
+The tree comes as nested dicts (and tuples) of numpy arrays, layer
+weights stacked on their leading ``L`` axis, as ``jax.tree.map(np.asarray,
+params)`` gives it; bf16 arrives as ``ml_dtypes.bfloat16``.  Nothing here
+imports JAX: the caller does the ``jax -> numpy`` step.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def from_numpy(tree, device="cpu"):
+    """The same tree of torch tensors on ``device``; bf16 goes through
+    float32, which holds every bf16 value exactly."""
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(from_numpy(v, device) for v in tree)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device)

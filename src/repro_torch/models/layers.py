@@ -1,0 +1,222 @@
+"""Shared layers of the dense decoder (port of ``repro.models.layers``).
+
+Conventions, as in the JAX package:
+
+* parameters are plain dicts of tensors; layer-stacked weights carry a
+  leading ``L`` axis (``transformer.forward`` indexes it layer by layer);
+* compute and parameters are bf16, sums fp32, and bf16 rounds where the
+  JAX package rounds: ``rmsnorm`` casts back before the gain, RoPE runs in
+  fp32 on split halves, attention sums in fp32 and casts at the end, and
+  the unembedding runs in fp32;
+* initialisation takes an explicit ``torch.Generator``; tensors are made
+  on its device.
+
+Prefill attention goes through :func:`repro_torch.kernels.ops.mha`, the
+flash kernel on the card (:func:`attn_apply` says which shapes).
+``chunked_attention`` and the cross-entropies belong to training and are
+not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+
+COMPUTE_DTYPE = torch.bfloat16
+PARAM_DTYPE = torch.bfloat16
+
+
+def _he(gen: torch.Generator, shape, scale: float = 1.0,
+        dtype=PARAM_DTYPE) -> torch.Tensor:
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (x * (scale / fan_in) ** 0.5).to(dtype)
+
+
+# ----------------------------------------------------------------- norms
+def rmsnorm_init(d: int, *, device=None, lead=()) -> torch.Tensor:
+    return torch.ones((*lead, d), dtype=PARAM_DTYPE, device=device)
+
+
+def rmsnorm(g, x, eps: float = 1e-6):
+    x32 = x.float()
+    rms = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * rms).to(x.dtype) * g
+
+
+# ------------------------------------------------------------------ rope
+def rope_freqs(dh: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exps = torch.arange(0, dh, 2, dtype=torch.float32, device=device) / dh
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, H, dh); positions: (..., S)."""
+    dh = x.shape[-1]
+    inv = rope_freqs(dh, theta, x.device)                  # (dh/2,)
+    ang = positions[..., :, None].float() * inv            # (..., S, dh/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- attention
+def causal_attention(q, k, v, *, scale: Optional[float] = None,
+                     causal: bool = True, q_offset: Optional[int] = None,
+                     softmax_dtype: str = "f32"):
+    """Reference attention.  q: (B,S,H,dh)  k/v: (B,T,K,dh) with H % K == 0.
+
+    ``q_offset``: position of q[0] within the KV timeline — decode and
+    chunked prefill use it for within-chunk causality.  (The JAX
+    function's ``kv_len`` has no caller and is not ported.)
+    """
+    B, S, H, dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else dh ** -0.5
+    rep = H // K
+    bf16 = softmax_dtype == "bf16"
+    cdt = torch.bfloat16 if bf16 else torch.float32
+    neg = -3e4 if bf16 else -1e30
+    qg = q.reshape(B, S, K, rep, dh)
+    # products summed in fp32, the logits rounded to cdt, then scaled by
+    # the scale rounded to cdt
+    logits = torch.einsum("bskrd,btkd->bkrst", qg.to(cdt).float(),
+                          k.to(cdt).float()).to(cdt) \
+        * torch.tensor(scale, dtype=cdt)
+    dev = q.device
+    if causal and S == T and q_offset is None:
+        mask = torch.ones((S, T), dtype=torch.bool, device=dev).tril()
+        logits = logits.masked_fill(~mask, neg)
+    if q_offset is not None:
+        qpos = q_offset + torch.arange(S, device=dev)
+        mask = qpos[:, None] >= torch.arange(T, device=dev)[None, :]
+        logits = logits.masked_fill(~mask, neg)
+    if bf16:
+        # bf16 buffers, fp32 row statistics (max/sum) only
+        m = logits.amax(-1, keepdim=True)
+        e = torch.exp(logits - m)                                  # bf16
+        s = e.float().sum(-1, keepdim=True)
+        p = (e.float() / s).to(torch.bfloat16)
+    else:
+        p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrst,btkd->bskrd", p.float(), v.to(p.dtype).float())
+    return out.reshape(B, S, H, dh).to(q.dtype)
+
+
+# -------------------------------------------------------------- attention block
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    impl: str = "reference"    # "reference" | "chunked" (not yet ported)
+    q_chunk: int = 512
+    softmax_dtype: str = "f32"  # "f32" | "bf16"
+
+
+def attn_init(gen: torch.Generator, cfg: AttnConfig, lead=()):
+    """Attention weights; ``lead`` prepends axes (the stacked ``L``)."""
+    D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    p = {
+        "wq": _he(gen, (*lead, D, H * dh)),
+        "wk": _he(gen, (*lead, D, K * dh)),
+        "wv": _he(gen, (*lead, D, K * dh)),
+        "wo": _he(gen, (*lead, H * dh, D)),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(dh, device=gen.device, lead=lead)
+        p["k_norm"] = rmsnorm_init(dh, device=gen.device, lead=lead)
+    return p
+
+
+def attn_apply(p, cfg: AttnConfig, x, positions, *, kv_cache=None,
+               cache_index: Optional[int] = None):
+    """Returns (out, new_kv_cache).  kv_cache: (k, v) each (B, T, K, dh).
+
+    The cache is written in place (the JAX package donates it) and
+    returned.  Which attention runs:
+
+    * no cache, ``impl="reference"``, f32 softmax: ``ops.mha`` (causal);
+      the bf16 softmax: the plain :func:`causal_attention`;
+    * cache, ``cache_index == 0`` and S > 1 (the prefill step):
+      ``ops.mha`` over the live prefix ``ck[:, :S]``, causal — the same
+      function as the masked f32 attention over the whole cache that the
+      JAX package computes there, whose entries past S get weight
+      exactly 0;
+    * cache otherwise (decode, ``cache_index > 0``): the plain
+      :func:`causal_attention`, f32 softmax whatever ``softmax_dtype``
+      says, as in the JAX package.
+    """
+    B, S, D = x.shape
+    H, K, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, dh)
+    k = (x @ p["wk"]).reshape(B, S, K, dh)
+    v = (x @ p["wv"]).reshape(B, S, K, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_cache is None:
+        if cfg.impl == "chunked":
+            raise NotImplementedError(
+                "attn_impl='chunked' is not yet ported to repro_torch")
+        if cfg.softmax_dtype == "f32":
+            out = ops.mha(q, k, v, causal=True)
+        else:
+            out = causal_attention(q, k, v, softmax_dtype=cfg.softmax_dtype)
+        new_cache = None
+    else:
+        ck, cv = kv_cache
+        ci = int(cache_index)
+        if ci < 0 or ci + S > ck.shape[1]:
+            raise ValueError(f"attn_apply: {S} tokens at cache index {ci} "
+                             f"do not fit a cache of {ck.shape[1]}")
+        ck[:, ci:ci + S] = k
+        cv[:, ci:ci + S] = v
+        if ci == 0 and S > 1:
+            out = ops.mha(q, ck[:, :S], cv[:, :S], causal=True)
+        else:
+            # position-based mask: causal within the new chunk AND only
+            # the first cache_index + S cache entries are live
+            out = causal_attention(q, ck, cv, causal=False, q_offset=ci)
+        new_cache = (ck, cv)
+    out = out.reshape(B, S, H * dh) @ p["wo"]
+    return out, new_cache
+
+
+# ------------------------------------------------------------------- ffn
+def ffn_init(gen: torch.Generator, d: int, f: int, lead=()):
+    return {"wi": _he(gen, (*lead, d, f)), "wg": _he(gen, (*lead, d, f)),
+            "wo": _he(gen, (*lead, f, d))}
+
+
+def ffn_apply(p, x):
+    h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    return h @ p["wo"]
+
+
+# ------------------------------------------------------------- embedding
+def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
+    x = torch.randn((vocab, d), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (x * 0.02).to(PARAM_DTYPE)
+
+
+def embed_apply(table, tokens):
+    return table[tokens].to(COMPUTE_DTYPE)
+
+
+def unembed_apply(table, x):
+    """Tied unembedding: logits in fp32 for a stable softmax."""
+    return torch.einsum("bsd,vd->bsv", x.float(), table.float())

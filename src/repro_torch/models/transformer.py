@@ -1,0 +1,130 @@
+"""Dense decoder-only transformer (port of ``repro.models.transformer``,
+the llama/qwen family).
+
+Layer weights are stacked on a leading ``L`` axis as in the JAX package;
+where it scans over them, :func:`forward` loops, one layer at a time.
+Mixture-of-experts layers and the training ``loss`` are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from . import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    moe: Optional[object] = None   # MoE is not yet ported: must stay None
+    tie_embeddings: bool = True
+    # the JAX package's remat policy and loss chunking; inference has no
+    # backward pass, so the port keeps them only as configuration
+    remat: str = "dots"
+    attn_impl: str = "reference"   # "reference" | "chunked"
+    q_chunk: int = 512
+    softmax_dtype: str = "f32"     # "f32" | "bf16" (perf variant)
+    loss_chunk: int = 0
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def attn(self) -> L.AttnConfig:
+        return L.AttnConfig(self.d_model, self.n_heads, self.n_kv, self.dh,
+                            self.qk_norm, self.rope_theta,
+                            impl=self.attn_impl, q_chunk=self.q_chunk,
+                            softmax_dtype=self.softmax_dtype)
+
+    def param_count(self) -> int:
+        D, F, V, H, K, dh = (self.d_model, self.d_ff, self.vocab,
+                             self.n_heads, self.n_kv, self.dh)
+        attn = D * H * dh + 2 * D * K * dh + H * dh * D
+        if self.moe:
+            ffn = self.moe.n_experts * 3 * D * self.moe.d_ff + \
+                D * self.moe.n_experts
+        else:
+            ffn = 3 * D * F
+        per_layer = attn + ffn + 2 * D
+        return self.n_layers * per_layer + V * D + D + \
+            (0 if self.tie_embeddings else V * D)
+
+
+def _dense_only(cfg: LMConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts layers are not yet ported to "
+            "repro_torch")
+
+
+def init(gen: torch.Generator, cfg: LMConfig):
+    """Random bf16 parameters on ``gen``'s device, the JAX package's tree
+    with every layer weight stacked on a leading ``L`` axis."""
+    _dense_only(cfg)
+    lead, dev = (cfg.n_layers,), gen.device
+    p = {
+        "embed": L.embed_init(gen, cfg.vocab, cfg.d_model),
+        "layers": {
+            "ln1": L.rmsnorm_init(cfg.d_model, device=dev, lead=lead),
+            "ln2": L.rmsnorm_init(cfg.d_model, device=dev, lead=lead),
+            "attn": L.attn_init(gen, cfg.attn, lead=lead),
+            "ffn": L.ffn_init(gen, cfg.d_model, cfg.d_ff, lead=lead),
+        },
+        "final_norm": L.rmsnorm_init(cfg.d_model, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.embed_init(gen, cfg.vocab, cfg.d_model)
+    return p
+
+
+def layer_params(stacked, i: int):
+    """Layer ``i`` of a tree of stacked weights (views, no copy)."""
+    if isinstance(stacked, dict):
+        return {k: layer_params(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+def _block(cfg: LMConfig, lp, x, positions, kv_cache=None, cache_index=None):
+    h, new_cache = L.attn_apply(lp["attn"], cfg.attn,
+                                L.rmsnorm(lp["ln1"], x), positions,
+                                kv_cache=kv_cache, cache_index=cache_index)
+    x = x + h
+    x = x + L.ffn_apply(lp["ffn"], L.rmsnorm(lp["ln2"], x))
+    return x, new_cache
+
+
+def forward(params, cfg: LMConfig, tokens, *, kv_caches=None,
+            cache_index: Optional[int] = None):
+    """tokens: (B, S) int -> logits (B, S, V) fp32.
+
+    ``kv_caches``: stacked (k, v) each (L, B, T, K, dh), written in place
+    and returned with the logits.  (The JAX function's ``prefix_embed``
+    serves the VLM family, not ported yet.)
+    """
+    _dense_only(cfg)
+    x = L.embed_apply(params["embed"], tokens)
+    B, S, D = x.shape
+    start = 0 if cache_index is None else int(cache_index)
+    positions = (start + torch.arange(S, dtype=torch.int32,
+                                      device=x.device))[None, :].expand(B, S)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        cache = None if kv_caches is None else \
+            (kv_caches[0][i], kv_caches[1][i])
+        x, _ = _block(cfg, lp, x, positions, cache, cache_index)
+    x = L.rmsnorm(params["final_norm"], x)
+    head = params.get("lm_head", params["embed"])
+    logits = L.unembed_apply(head, x)
+    return (logits, kv_caches) if kv_caches is not None else logits

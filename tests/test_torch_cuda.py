@@ -14,8 +14,13 @@ import torch
 from repro_torch.core import isa, machine, scheduler
 from repro_torch.core.machine import MachineConfig
 from repro_torch.core.programs import ALL
-from repro_torch.kernels import _build
-from repro_torch.kernels.ref import simt_alu_ref
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_gqa)
+from repro_torch.kernels.matmul import matmul
+from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
+                                     mha_ref, simt_alu_ref)
 from repro_torch.kernels.simt_alu import simt_alu
 from test_torch_parity import out_of_range_program
 
@@ -86,3 +91,81 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="warps"):
         scheduler.run_grid(np.asarray(ALL["bitonic"].build(32)), (1, 1),
                            33 * 32, np.zeros(64, np.int32), device=card)
+
+
+# (Sq, Sk, dh, causal); tolerances: f32 2e-3, bf16 3e-2 (tests/test_kernels)
+FLASH_SHAPES = [(256, 256, 64, True), (256, 256, 128, True),
+                (128, 512, 64, False), (200, 200, 128, True),
+                (40, 72, 16, True), (512, 512, 256, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,dh,causal", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(card, Sq, Sk, dh, causal,
+                                              dtype):
+    g = torch.Generator(device=card).manual_seed(Sq + dh)
+    q, k, v = (torch.randn((3, s, dh), generator=g, device=card).to(dtype)
+               for s in (Sq, Sk, Sk))
+    _build.LAUNCHES.clear()
+    got = flash_attention(q, k, v, causal=causal)
+    assert _build.LAUNCHES["flash_attention"] == 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("S", [16, 200, 512])
+def test_flash_attention_gqa_reads_strided_cache(card, S):
+    """The model's call: q (B, S, H, dh), k/v a prefix of a longer cache."""
+    g = torch.Generator(device=card).manual_seed(S)
+    q = torch.randn((2, S, 8, 128), generator=g, device=card).bfloat16()
+    ck, cv = (torch.randn((2, S + 40, 2, 128), generator=g, device=card)
+              .bfloat16() for _ in range(2))
+    got = flash_attention_gqa(q, ck[:, :S], cv[:, :S], causal=True)
+    want = mha_ref(q, ck[:, :S], cv[:, :S], causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(128, 128, 128), (256, 384, 128),
+                                   (384, 128, 256), (512, 512, 512)])
+def test_matmul_kernel_matches_plain(card, shape, dtype):
+    M, K, N = shape
+    g = torch.Generator(device=card).manual_seed(M)
+    a = torch.randn((M, K), generator=g, device=card).to(dtype)
+    b = torch.randn((K, N), generator=g, device=card).to(dtype)
+    _build.LAUNCHES.clear()
+    got = ops.matmul(a, b, bm=128, bn=128, bk=128)
+    assert _build.LAUNCHES["matmul"] == 1 and got.dtype == dtype
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), matmul_ref(a, b).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_reduced_prefill_on_card(monkeypatch, card):
+    """The reduced model's prefill step: one flash launch per layer;
+    logits within the bf16 tolerance (2e-2) of the plain attention's
+    (``mha_ref`` in the flash wrapper's place), and
+    each layer's caches within a 2e-2 relative Frobenius error (the
+    measure tests/test_torch_lm.py holds caches to)."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    spec = configs.reduced(configs.get("qwen3-0.6b"))
+    params = api.init(torch.Generator(device=card).manual_seed(0), spec)
+    toks = torch.randint(0, 256, (2, 32), device=card)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(tfa, "flash_attention_gqa", mha_ref)
+        _build.LAUNCHES.clear()
+        state = api.decode_state(spec, 2, 40, device=card)
+        runs.append(api.apply_decode(params, spec, toks, state, 0))
+        assert _build.LAUNCHES["flash_attention"] == \
+            (0 if plain else spec.cfg.n_layers)
+    (lk, sk), (lp, sp) = runs
+    torch.testing.assert_close(lk, lp, rtol=2e-2, atol=2e-2)
+    for a, b in zip(sk["kv"], sp["kv"]):
+        for layer in range(spec.cfg.n_layers):
+            err = (a[layer].float() - b[layer].float()).norm()
+            assert err <= 2e-2 * b[layer].float().norm()

@@ -25,7 +25,10 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.runtime.executor" in mods
+    assert {"repro_torch.runtime.executor", "repro_torch.launch.serve",
+            "repro_torch.models.transformer", "repro_torch.kernels.ops",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.configs.qwen3_0p6b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -84,3 +87,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         machine.run_block(code, bd, (0, 0), grid, g0)
 
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    """The serving entry point and the decode state default to the card."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = configs.reduced(configs.get("qwen3-0.6b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--gen", "1", "--prompt-len", "4"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.decode_state(spec, 1, 8)
