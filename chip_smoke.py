@@ -38,23 +38,36 @@ Phases, each printed as it ends:
    cycle budget), and its bound;
 8. ``flash_attention`` and ``matmul`` against their plain versions on the
    card: the sweep of ``tests/test_kernels.py`` plus a ragged length
-   (S=200), large logits, and the model's strided GQA call; matmul at the
-   sweep's shapes and at ``kernel_micro``'s 512x512 float32 with 128
-   tiles, through ``ops.matmul`` (that call is the matmul kernel's path);
+   (S=200), large logits, and the model's strided GQA call, each bf16 case
+   through both variants (the rule's tensor-core one and the SIMT one,
+   forced by ``variant="simt"``), and a misaligned q that the rule must
+   send to the SIMT variant; matmul at the sweep's shapes, a ragged
+   200x200x200 and a scalar-load shape, in both dtypes, and at
+   ``kernel_micro``'s 512x512 float32 with 128 tiles, through
+   ``ops.matmul`` (that call is the matmul kernel's path);
 9. the LM serving path: ``repro_torch.launch.serve.main`` serves
    qwen3-0.6b at full width (28 layers, random bf16 weights from seed 0):
    batch 4, prompts of 512 and 200 tokens, 32 new tokens each, with one
-   flash launch per layer in each prefill; then the prefill step with the
-   kernel and with the plain attention on the same weights and prompt,
-   compared per layer and end to end, the same measures read for two
-   planted faults, and the prefill and decode times;
-10. the flash and matmul kernels timed at their paths' shapes beside the
-   plain version, one PyTorch library call, and the bound.
+   flash launch per layer in each prefill, every one the tensor-core
+   variant; then the prefill step with the kernel and with the plain
+   attention on the same weights and prompt, compared per layer and end
+   to end, the same measures read for two planted faults, and the
+   prefill and decode times;
+10. the flash kernel's two variants and the matmul kernel in both dtypes
+   timed at their paths' shapes beside the plain version, one PyTorch
+   library call (for attention, each ``scaled_dot_product_attention``
+   backend that takes the shape, and which of them the unrestricted call
+   ran), and the bound.
 
 The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.  Times are CUDA-event times on the card
-named in the output, beside its power limit; serving times are host
-clocks around work that ends in a device sync.
+``{"ok": true, "device": {...}}``.  Times are on the card named in the
+output, beside its power limit.  A kernel's ``ms`` (and its plain
+version's and library call's) is device time: CUDA events around many
+calls queued behind a spin kernel, so that the device runs them back to
+back (``device_ms``); ``event_ms`` is the CUDA-event time of the same
+calls launched back to back on an idle device, which for a call shorter
+than its launch measures the host.  The fused kernel's time is CUDA-event time less its input copy's;
+serving times are host clocks around work that ends in a device sync.
 """
 from __future__ import annotations
 
@@ -118,6 +131,44 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+#: cycles of the spin kernel that holds the device while the host queues
+#: the calls ``device_ms`` times (about 60 ms at the H100's clocks)
+SPIN_CYCLES = 100_000_000
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of one ``fn()`` over ``reps`` runs after
+    one warm-up run.  The runs are queued behind a spin kernel
+    (``torch.cuda._sleep``), so the device runs them back to back while
+    the host is still launching them, and the CUDA-event time over them
+    is the device's, not the host's launch rate, which is what
+    ``cuda_ms`` measures for a call shorter than its launch.  Raises if
+    the host took longer to queue the runs than the spin lasted."""
+    fn()
+    torch.cuda.synchronize()
+    spin, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if host_ms >= spin.elapsed_time(start):
+        raise AssertionError(f"device_ms: queueing {reps} runs took the host "
+                             f"{host_ms:.1f} ms, longer than the "
+                             f"{spin.elapsed_time(start):.1f} ms spin")
+    return start.elapsed_time(end) / reps
+
+
+def timed(fn, reps: int):
+    """(device ms, CUDA-event ms) of one ``fn()``."""
+    return device_ms(fn, reps), cuda_ms(fn, reps)
 
 
 # ------------------------------------------------------------ phase 3
@@ -350,17 +401,19 @@ def time_simt_alu(rng, launches_on_path, max_err):
     out = {}
     for W in (8, 4096):          # the staged path's shape; a large one
         x = alu_inputs(rng, W, list(range(28)))
-        ms = cuda_ms(lambda: simt_alu(*x), 2000 if W == 8 else 200)
-        plain_ms = cuda_ms(lambda: simt_alu_ref(*x), 50)
+        ms, event_ms = timed(lambda: simt_alu(*x), 200)
+        plain_ms = device_ms(lambda: simt_alu_ref(*x), 5)
         nbytes = (W + 8 * W * 32) * 4          # op + 6 operands in, 2 out
         ops = W * 32 * 8      # selected op, difference, 4 flags, 2 masks
         bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
-        out[W] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        out[W] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                      bound_ms=bound,
                       bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                       >= ops / INT32_OPS_PER_S else "operations")
-        log(f"[timing] simt_alu W={W}x32: {ms:.4f} ms, plain "
+        log(f"[timing] simt_alu W={W}x32: device {ms:.4f} ms (events, "
+            f"back to back: {event_ms:.4f} ms), plain device "
             f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({nbytes} B)")
-    return dict(name="simt_alu", route="cuda",
+    return dict(name="simt_alu", route="cuda", variant="single",
                 source="src/repro_torch/csrc/simt_alu.cu",
                 replaces=SIMT_REPLACES, launches=launches_on_path,
                 max_abs_err=max_err, library_ms=None, **out[8])
@@ -437,7 +490,7 @@ def time_fused(launches_on_path):
         f"(max_cycles={PLAIN_CARD_BUDGET}), bit-exact with the kernel: "
         f"{card_plain_ms:.1f} ms, {card_plain_ms / short_steps:.3f} ms per "
         f"step of the group (kernel: {k_ms / steps * 1e3:.3f} us)")
-    return dict(name="fused_sm_run", route="cuda",
+    return dict(name="fused_sm_run", route="cuda", variant="single",
                 source="src/repro_torch/csrc/fused_sm.cu",
                 replaces=FUSED_REPLACES, launches=launches_on_path,
                 max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound,
@@ -457,7 +510,28 @@ def close(got, want, tol, tag):
     return err
 
 
+def variant_counts():
+    from repro_torch.kernels import _build
+    return dict(_build.VARIANTS)
+
+
+def flash_case(fn, want_fn, args, causal, tol, tag, want_variant,
+               forced=None):
+    """One flash call against its plain version; the launch must have
+    taken ``want_variant``."""
+    from repro_torch.kernels import _build
+    _build.VARIANTS.clear()
+    got = fn(*args, causal=causal, variant=forced)
+    if variant_counts() != {("flash_attention", want_variant): 1}:
+        raise AssertionError(f"{tag}: launched {variant_counts()}, want "
+                             f"{want_variant}")
+    return close(got, want_fn(*args, causal=causal), tol, tag)
+
+
 def phase_flash_vs_plain():
+    """The sweep through both variants: every bf16 case at dh 64/128 by
+    the rule's tensor-core variant and by the SIMT one; float32 and the
+    misaligned case by the SIMT one, which the rule must choose."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_gqa)
     from repro_torch.kernels.ref import flash_attention_ref, mha_ref
@@ -465,16 +539,22 @@ def phase_flash_vs_plain():
     cases = [(256, 256, 64, True), (256, 256, 128, True),
              (128, 512, 64, False), (512, 512, 64, True),
              (200, 200, 128, True), (200, 200, 64, False)]
-    by_dtype = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    errs = {"tc": 0.0, "simt f32": 0.0, "simt bf16": 0.0}
+    n = 0
     for Sq, Sk, dh, causal in cases:
         for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
             q, k, v = (rand(g, (3, s, dh), dtype) for s in (Sq, Sk, Sk))
-            got = flash_attention(q, k, v, causal=causal)
-            want = flash_attention_ref(q, k, v, causal=causal)
-            by_dtype[dtype] = max(by_dtype[dtype], close(
-                got, want, tol, f"flash {Sq}x{Sk}x{dh} causal={causal} "
-                f"{dtype}"))
-    max_err = max(by_dtype.values())
+            tag = f"flash {Sq}x{Sk}x{dh} causal={causal} {dtype}"
+            runs = [("simt", "simt")] if dtype == torch.float32 else \
+                [("tc", None), ("simt", "simt")]
+            for want, forced in runs:
+                key = want if want == "tc" else \
+                    f"simt {'f32' if dtype == torch.float32 else 'bf16'}"
+                errs[key] = max(errs[key], flash_case(
+                    flash_attention, flash_attention_ref, (q, k, v), causal,
+                    tol, f"{tag} {want}", want, forced))
+                n += 1
+    max_err = max(errs.values())
     # large logits (q, k scaled by 30): tolerance 1e-2
     q, k = (rand(g, (1, 256, 64), torch.float32, 30) for _ in range(2))
     v = rand(g, (1, 256, 64), torch.float32)
@@ -486,40 +566,67 @@ def phase_flash_vs_plain():
     # the model's call: GQA heads, keys a prefix of a longer bf16 cache
     q = rand(g, (4, 512, 16, 128), torch.bfloat16)
     ck, cv = (rand(g, (4, 544, 8, 128), torch.bfloat16) for _ in range(2))
-    got = flash_attention_gqa(q, ck[:, :512], cv[:, :512], causal=True)
-    max_err = max(max_err, close(got, mha_ref(q, ck[:, :512], cv[:, :512]),
-                                 3e-2, "flash GQA cache prefix"))
-    log(f"[flash_attention] vs flash_attention_ref: {2 * len(cases) + 2} "
-        f"cases (the test_kernels sweep, S=200, large logits, GQA cache "
-        f"prefix) within tolerance (f32 2e-3, bf16 3e-2, large 1e-2); "
-        f"max_abs_err {max_err:.3e} (sweep f32 "
-        f"{by_dtype[torch.float32]:.3e}, bf16 {by_dtype[torch.bfloat16]:.3e})")
+    args = (q, ck[:, :512], cv[:, :512])
+    for want, forced in (("tc", None), ("simt", "simt")):
+        max_err = max(max_err, flash_case(
+            flash_attention_gqa, mha_ref, args, True, 3e-2,
+            f"flash GQA cache prefix {want}", want, forced))
+    # a q one element past a 16-byte boundary: the rule must take SIMT
+    buf = rand(g, (4 * 256 * 8 * 64 + 1,), torch.bfloat16)
+    qm = buf[1:].view(4, 256, 8, 64)
+    km, vm = (rand(g, (4, 256, 4, 64), torch.bfloat16) for _ in range(2))
+    max_err = max(max_err, flash_case(
+        flash_attention_gqa, mha_ref, (qm, km, vm), True, 3e-2,
+        "flash misaligned q", "simt"))
+    log(f"[flash_attention] vs flash_attention_ref: {n + 4} cases (the "
+        f"test_kernels sweep, S=200, each bf16 case by both variants; "
+        f"large logits; GQA cache prefix by both; misaligned q by SIMT) "
+        f"within tolerance (f32 2e-3, bf16 3e-2, large 1e-2); every launch "
+        f"took the variant the rule or the caller named; max_abs_err "
+        f"{max_err:.3e} (sweep tc {errs['tc']:.3e}, simt f32 "
+        f"{errs['simt f32']:.3e}, simt bf16 {errs['simt bf16']:.3e})")
     return max_err
 
 
 def phase_matmul_vs_plain(launches):
     """The sweep, then the matmul kernel's path: ``ops.matmul`` at
     ``kernel_micro``'s shape, 512x512 float32 with 128 tiles."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.matmul import variant
     from repro_torch.kernels.ref import matmul_ref
     g = torch.Generator(device="cuda").manual_seed(6)
     by_dtype = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for M, K, N in ((128, 128, 128), (256, 384, 128), (384, 128, 256)):
+    seen = set()
+    # the sweep; 200^3 is ragged against the 64 x 32 tiles; rows of K =
+    # 100 and N = 50 are not whole 16-byte vectors (the scalar variants)
+    for M, K, N, blk in ((128, 128, 128, 128), (256, 384, 128, 128),
+                         (384, 128, 256, 128), (200, 200, 200, 512),
+                         (300, 100, 50, 512)):
         for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
             a, b = rand(g, (M, K), dtype), rand(g, (K, N), dtype)
-            got = ops.matmul(a, b, bm=128, bn=128, bk=128)
+            want = variant(a, b)
+            seen.add(want)
+            _build.VARIANTS.clear()
+            got = ops.matmul(a, b, bm=blk, bn=blk, bk=blk)
+            if variant_counts() != {("matmul", want): 1}:
+                raise AssertionError(f"matmul {M}x{K}x{N} {dtype}: launched "
+                                     f"{variant_counts()}, want {want}")
             by_dtype[dtype] = max(by_dtype[dtype], close(
                 got, matmul_ref(a, b), tol, f"matmul {M}x{K}x{N} {dtype}"))
+    if seen != {"simt", "simt_scalar", "tc", "tc_scalar"}:
+        raise AssertionError(f"matmul sweep took only {seen}")
     a, b = (rand(g, (512, 512), torch.float32) for _ in range(2))
     launches.clear()
+    _build.VARIANTS.clear()
     got = ops.matmul(a, b, bm=128, bn=128, bk=128)
     counts = dict(launches)
-    if counts != {"matmul": 1}:
-        raise AssertionError(f"ops.matmul path launched {counts}")
+    if counts != {"matmul": 1} or variant_counts() != {("matmul", "simt"): 1}:
+        raise AssertionError(f"ops.matmul path launched {counts}, "
+                             f"{variant_counts()}")
     path_err = close(got, matmul_ref(a, b), 1e-3, "matmul 512x512 f32")
     max_err = max(path_err, *by_dtype.values())
-    log(f"[matmul] vs matmul_ref: 7 cases within tolerance (f32 1e-3, bf16 "
-        f"2e-2); max_abs_err {max_err:.3e} (f32 "
+    log(f"[matmul] vs matmul_ref: 11 cases, all four variants, within "
+        f"tolerance (f32 1e-3, bf16 2e-2); max_abs_err {max_err:.3e} (f32 "
         f"{max(path_err, by_dtype[torch.float32]):.3e}, bf16 "
         f"{by_dtype[torch.bfloat16]:.3e}, one bf16 ulp of outputs near "
         f"20); ops.matmul 512x512 f32 path launches {counts}")
@@ -634,8 +741,10 @@ def phase_serving(launches):
     spec = configs.get("qwen3-0.6b")
     cfg, B, G = spec.cfg, 4, 32
     flash_launches = None
+    from repro_torch.kernels import _build
     for P in PROMPTS:
         launches.clear()
+        _build.VARIANTS.clear()
         t0 = time.perf_counter()
         gen = serve.main(SERVE_ARGS + ["--prompt-len", str(P)])
         wall = time.perf_counter() - t0
@@ -643,11 +752,15 @@ def phase_serving(launches):
         if counts != {"flash_attention": cfg.n_layers}:
             raise AssertionError(f"serve P={P}: launches {counts}, want "
                                  f"{cfg.n_layers} flash_attention")
+        if variant_counts() != {("flash_attention", "tc"): cfg.n_layers}:
+            raise AssertionError(f"serve P={P}: variants {variant_counts()}"
+                                 f", want all {cfg.n_layers} tc")
         if gen.shape != (B, G) or gen.min() < 0 or gen.max() >= cfg.vocab:
             raise AssertionError(f"serve P={P}: tokens {gen.shape}")
         flash_launches = flash_launches or counts["flash_attention"]
         log(f"[serve] main P={P}: {gen.shape} tokens in [0, {cfg.vocab}), "
-            f"wall {wall:.1f} s, launches {counts}")
+            f"wall {wall:.1f} s, launches {counts}, every flash launch the "
+            f"tensor-core variant")
 
         params = api.init(torch.Generator(device="cuda").manual_seed(0),
                           spec)
@@ -740,59 +853,105 @@ def bound(nbytes, flops, dtype):
         name
 
 
+def time_sdpa(qh, kh, vh):
+    """``scaled_dot_product_attention`` on (B, H, S, dh) inputs: its
+    device and event times unrestricted, its device time under
+    ``sdpa_kernel`` restricted to each backend that takes the shape (one
+    that refuses it raises RuntimeError on the call, which is what the
+    probe reads), and the backend whose output equals the unrestricted
+    call's bit for bit, the closest in device time first."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    lib = partial(F.scaled_dot_product_attention, qh, kh, vh,
+                  is_causal=True, enable_gqa=True)
+    ref = lib()
+    lib_ms, lib_event_ms = timed(lib, 50)
+    by_backend, same = {}, []
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel(be):
+            try:
+                out = lib()
+            except RuntimeError:
+                continue
+            by_backend[be.name] = device_ms(lib, 20)
+        if torch.equal(out, ref):
+            same.append(be.name)
+    same.sort(key=lambda n: abs(by_backend[n] - lib_ms))
+    return (lib, lib_ms, lib_event_ms, by_backend,
+            same[0] if same else "none matched")
+
+
 def time_flash(launches_on_path, max_err):
     """The prefill's call: B 4, S 512, 16 query heads on 8 KV heads, dh
-    128, bf16, causal."""
-    import torch.nn.functional as F
+    128, bf16, causal, by both variants."""
     from repro_torch.kernels.flash_attention import flash_attention_gqa
     from repro_torch.kernels.ref import mha_ref
     B, S, H, KH, dh = 4, 512, 16, 8, 128
     g = torch.Generator(device="cuda").manual_seed(7)
     q = rand(g, (B, S, H, dh), torch.bfloat16)
     k, v = (rand(g, (B, S, KH, dh), torch.bfloat16) for _ in range(2))
-    ms = cuda_ms(lambda: flash_attention_gqa(q, k, v, causal=True), 50)
-    plain_ms = cuda_ms(lambda: mha_ref(q, k, v, causal=True), 10)
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = partial(F.scaled_dot_product_attention, qh, kh, vh,
-                  is_causal=True, enable_gqa=True)
-    lib_ms = cuda_ms(lib, 50)
+    tc_ms, tc_event = timed(
+        lambda: flash_attention_gqa(q, k, v, causal=True), 50)
+    simt_ms, simt_event = timed(
+        lambda: flash_attention_gqa(q, k, v, causal=True, variant="simt"),
+        20)
+    plain_ms = device_ms(lambda: mha_ref(q, k, v, causal=True), 10)
+    lib, lib_ms, lib_event, by_backend, backend = time_sdpa(
+        *(x.transpose(1, 2).contiguous() for x in (q, k, v)))
     lib_err = (lib().transpose(1, 2).float()
                - flash_attention_gqa(q, k, v).float()).abs().max().item()
     nbytes = 2 * (2 * B * S * H * dh + 2 * B * S * KH * dh)
     flops = 4 * dh * B * H * (S * (S + 1) // 2)   # QK^T and PV, causal
     bound_ms, by, peak = bound(nbytes, flops, torch.bfloat16)
     log(f"[timing] flash_attention B={B} S={S} H={H}/{KH} dh={dh} bf16 "
-        f"causal: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {lib_ms:.4f} ms (max diff "
-        f"{lib_err:.2e}); bound {bound_ms:.5f} ms ({nbytes} B, {flops} "
-        f"FLOP, {by}; peak {peak})")
-    return dict(name="flash_attention", route="cuda",
+        f"causal, device (events, back to back): tc {tc_ms:.4f} ms "
+        f"({tc_event:.4f}), simt {simt_ms:.4f} ms ({simt_event:.4f}; "
+        f"{simt_ms / tc_ms:.1f}x tc), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {lib_ms:.4f} ms ({lib_event:.4f}; "
+        f"max diff {lib_err:.2e}; by backend "
+        + ", ".join(f"{n} {t:.4f} ms" for n, t in by_backend.items())
+        + f"; the unrestricted call ran {backend}); bound {bound_ms:.5f} ms "
+        f"({nbytes} B, {flops} FLOP, {by}; peak {peak})")
+    return dict(name="flash_attention", route="cuda", variant="tc",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces=FLASH_REPLACES, launches=launches_on_path,
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+                max_abs_err=max_err, ms=tc_ms, event_ms=tc_event,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=lib_ms, variant_ms={"tc": tc_ms, "simt": simt_ms},
+                library_backend=backend)
 
 
 def time_matmul(launches_on_path, max_err, ab):
-    """``kernel_micro``'s call: 512x512 float32, 128 tiles."""
+    """``kernel_micro``'s call, 512x512 float32 with 128 tiles (the path),
+    and the same product in bfloat16 (the tensor-core variant), each
+    beside ``torch.matmul`` of its dtype."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_ref
-    a, b = ab
-    ms = cuda_ms(lambda: ops.matmul(a, b, bm=128, bn=128, bk=128), 200)
-    plain_ms = cuda_ms(lambda: matmul_ref(a, b), 200)
-    lib_ms = cuda_ms(lambda: torch.matmul(a, b), 200)
-    M, K = a.shape
-    N = b.shape[1]
-    nbytes, flops = 4 * (M * K + K * N + M * N), 2 * M * N * K
-    bound_ms, by, peak = bound(nbytes, flops, torch.float32)
-    log(f"[timing] matmul {M}x{K}x{N} f32: {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms; bound "
-        f"{bound_ms:.5f} ms ({nbytes} B, {flops} FLOP, {by}; peak {peak})")
-    return dict(name="matmul", route="cuda",
+    out = {}
+    for a, b in (ab, tuple(x.bfloat16() for x in ab)):
+        ms, event_ms = timed(
+            lambda: ops.matmul(a, b, bm=128, bn=128, bk=128), 100)
+        plain_ms = device_ms(lambda: matmul_ref(a, b), 100)
+        lib_ms, lib_event = timed(lambda: torch.matmul(a, b), 100)
+        M, K = a.shape
+        N = b.shape[1]
+        nbytes = a.element_size() * (M * K + K * N + M * N)
+        flops = 2 * M * N * K
+        bound_ms, by, peak = bound(nbytes, flops, a.dtype)
+        log(f"[timing] matmul {M}x{K}x{N} {str(a.dtype)[6:]}, device "
+            f"(events, back to back): {ms:.4f} ms ({event_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms "
+            f"({lib_event:.4f}); bound {bound_ms:.5f} ms ({nbytes} B, "
+            f"{flops} FLOP, {by}; peak {peak})")
+        out[a.dtype] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+    return dict(name="matmul", route="cuda", variant="simt",
                 source="src/repro_torch/csrc/matmul.cu",
                 replaces=MATMUL_REPLACES, launches=launches_on_path,
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+                max_abs_err=max_err, **out[torch.float32],
+                variant_ms={"simt": out[torch.float32]["ms"],
+                            "tc": out[torch.bfloat16]["ms"]})
 
 
 def main() -> int:

@@ -1,5 +1,5 @@
-// flash_attention: causal or full attention as a CUDA kernel for Hopper
-// (sm_90a).
+// flash_attention: causal or full attention as CUDA kernels for Hopper
+// (sm_90a), in two variants.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::
 // flash_attention (body _flash_kernel): softmax(q k^T * dh^-0.5) v with an
@@ -13,34 +13,64 @@
 // the model's (B, S, H, dh) activations and a prefix of its KV cache are
 // read where they lie.  Query head h reads KV head h / (H / KH): GQA
 // without materialising the repeated heads.  The (BH, S, dh) form of the
-// TPU kernel is B = BH, H = KH = 1.
+// TPU kernel is B = BH, H = KH = 1.  Ragged tails (Sq or Sk not a
+// multiple of 64) are masked: rows past Sq are not stored, keys past Sk
+// score -1e30 and their V rows are zero.
 //
-// Design: one CTA of 256 threads per (64-query tile, head, batch).  The Q
-// tile and one 64-key tile (K, then V in the same buffer) are staged in
-// shared memory as fp32, rows padded to an odd stride so that the 16 rows
-// one column is read from fall in distinct banks.  Thread (g, c) of 16
-// row groups x 16 column lanes owns query rows 4g..4g+3: for QK^T the key
+// What bounds it: at the serving path's prefill shape (B 4, S 512, H 16,
+// KH 8, dh 128, bf16, causal) the work is 4.30 GFLOP over 25.2 MB: 0.0075
+// ms of device memory at 3.35 TB/s, 0.0044 ms of bf16 tensor-core
+// products at 989 TFLOP/s, so the bound is the memory rate.
+//
+// Variant "tc" (flash_tc_kernel; bf16, dh 64 or 128, 16-byte aligned
+// rows), what the serving path runs.  One CTA of 4 warps per (64-query
+// tile, head, batch); each warp owns 16 query rows.  The query tile is
+// the slowest grid axis, reversed under `causal`: causal tile i does i+1
+// KV tiles, so the heaviest tiles start first and the last wave holds
+// the lightest.  Q is copied once into shared memory by cp.async and
+// kept in registers as mma A fragments for the whole KV loop.  S = QK^T
+// is mma.sync m16n8k16 (bf16 in, fp32 accumulator) with K's B fragments
+// read by ldmatrix from the K tile as it lies (row-major K is the "col"
+// operand): the bf16 x bf16 products are exact in fp32, as in the TPU
+// kernel's f32 dot of widened inputs.  The online softmax runs on the
+// accumulator fragments: a row's 64 scores lie in one quad of lanes, so
+// the row max and, at the end, the row sum are two xor-shuffles;
+// exp2f with scale * log2(e) folded into one multiply; the -1e30 mask
+// only on the diagonal tile and the ragged last one.  P is packed to
+// bf16 in registers (two neighbouring S fragments are one A fragment)
+// and O += PV reads V's fragments by ldmatrix.trans; l sums the unrounded
+// p.  K and V move through a two-stage ring of cp.async.cg 16-byte
+// copies (rows past Sk zero-filled by the copy's source size): tile t+1
+// is in flight while tile t computes, one barrier a tile.  Rows are
+// padded by 16 bytes, so ldmatrix's eight 16-byte rows fall in distinct
+// banks.  Shared memory per CTA: four 64-row tiles (two stages of K and
+// V; Q borrows the second stage's K tile before the ring fills it), 68 KB
+// at dh 128 and 36 KB at dh 64; at dh 128 the registers (up to 255 a
+// thread under __launch_bounds__(128, 2)) allow two or three CTAs an SM.
+// wgmma with TMA, warp-specialised, is later work.
+//
+// Variant "simt" (flash_kernel): float32 (the tensor cores would round it
+// to TF32), any dh up to 256, and rows that are not 16-byte aligned.  One
+// CTA of 256 threads per (64-query tile, head, batch).  The Q tile and
+// one 64-key tile (K, then V in the same buffer) are staged in shared
+// memory as fp32, rows padded to an odd stride so that the 16 rows one
+// column is read from fall in distinct banks.  Thread (g, c) of 16 row
+// groups x 16 column lanes owns query rows 4g..4g+3: for QK^T the key
 // columns c + 16j (j < 4), for PV the output columns c + 16j (j < dh/16).
 // A row's 64 scores live in the 16 lanes of one half-warp, so the row
 // max and sum are xor-shuffles within it; m, l and the accumulator stay
-// in registers.  Ragged tails (Sq or Sk not a multiple of 64) are masked:
-// rows past Sq are not stored, keys past Sk score -1e30 and their V rows
-// are zero.
-//
-// What bounds it: at the serving path's prefill shape (B 4, S 512, H 16,
-// KH 8, dh 128, bf16) the work is 4.3 GFLOP over 25 MB, so the card's
-// bound is its memory rate; this kernel does its FMAs on the fp32 cores
-// from shared memory (no tensor cores, no TMA, no async copies), so it is
-// bound by shared-memory bandwidth and fp32 throughput, far above that bound.
-// wgmma, TMA and a pipelined K/V ring are later work.
+// in registers.  Its FMAs run on the fp32 cores from shared memory, with
+// synchronous loads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma.cuh"
 
 namespace {
 
 constexpr int BQ = 64;         // query rows per CTA
 constexpr int BK = 64;         // keys per KV tile
-constexpr int THREADS = 256;   // 16 row groups x 16 column lanes
+constexpr int THREADS = 256;   // simt: 16 row groups x 16 column lanes
 constexpr int PLD = BK + 1;    // row stride of the P tile
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -237,19 +267,245 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
                        s);
 }
 
+
+// ------------------------------------------------------ variant "tc"
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int THREADS = 128;   // 4 warps, 16 query rows each
+
+template <int DH>
+struct Tile {
+  static constexpr int LD = DH + 8;     // padded row, elements
+  static constexpr int SIZE = BK * LD;  // elements of one 64-row tile
+  static constexpr int CH = DH / 8;     // 16-byte chunks of a row
+  // two stages of K and V; Q borrows tile 2 (stage 1's K) at the start
+  static constexpr size_t SMEM = 4 * SIZE * sizeof(bf16);
+};
+
+// rows row0 .. row0+63 of one head into a padded tile by 16-byte async
+// copies; rows at or past n are zero-filled (the source is then row 0,
+// which is valid, and reads no byte)
+template <int DH>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long stride, int row0,
+                                          int n) {
+  using T = Tile<DH>;
+#pragma unroll
+  for (int e = 0; e < BK * T::CH / THREADS; ++e) {
+    const int i = e * THREADS + threadIdx.x;
+    const int r = i / T::CH, c = i % T::CH, row = row0 + r;
+    const bool ok = row < n;
+    mma::cp_async16(dst + r * T::LD + c * 8,
+                    src + (ok ? row * stride : 0) + c * 8, ok ? 16 : 0);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 2)
+    flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    Strides qs, Strides ks, Strides vs, Strides os, int rep,
+                    int Sq, int Sk, float scale_log2, int causal) {
+  using T = Tile<DH>;
+  constexpr int KC = DH / 16;  // 16-deep chunks of a head
+  constexpr int NO = DH / 8;   // n8 tiles of a head (O's fragments)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* tiles = reinterpret_cast<bf16*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / rep;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ, w0 = q0 + warp * 16;  // first row of the warp
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, qt + 1);
+
+  load_tile<DH>(tiles + 2 * T::SIZE, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
+  load_tile<DH>(tiles, kb, ks.s, 0, Sk);
+  load_tile<DH>(tiles + T::SIZE, vb, vs.s, 0, Sk);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KC][4];  // the warp's 16 rows of Q as A fragments
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+    mma::ldmatrix_x4(qf[kc], tiles + 2 * T::SIZE +
+                                 (warp * 16 + (lane & 15)) * T::LD +
+                                 kc * 16 + (lane >> 4) * 8);
+  __syncthreads();  // Q is in registers: tile 2 is free for the ring
+
+  // rows g and g+8 of the warp: [0] for fragments c0, c1; [1] for c2, c3
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t > 0) {
+      mma::cp_async_wait<0>();  // tile t has landed
+      __syncthreads();          // ... for every thread; tile t-1 is consumed
+    }
+    if (t + 1 < n_tiles) {      // tile t+1 into the other stage
+      bf16* nxt = tiles + ((t + 1) & 1) * 2 * T::SIZE;
+      load_tile<DH>(nxt, kb, ks.s, (t + 1) * BK, Sk);
+      load_tile<DH>(nxt + T::SIZE, vb, vs.s, (t + 1) * BK, Sk);
+      mma::cp_async_commit();
+    }
+    const bf16* Ks = tiles + (t & 1) * 2 * T::SIZE;
+    const bf16* Vs = Ks + T::SIZE;
+
+    // S = Q K^T: 8 n8 tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kf[4];  // B fragments of keys 16np .. 16np+15
+        mma::ldmatrix_x4(kf, Ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3))
+                                      * T::LD +
+                                 kc * 16 + ((lane >> 3) & 1) * 8);
+        mma::mma_bf16(s[2 * np], qf[kc], kf[0], kf[1]);
+        mma::mma_bf16(s[2 * np + 1], qf[kc], kf[2], kf[3]);
+      }
+
+    // online softmax in the log2 domain
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > w0);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int row = w0 + g + 8 * (e >> 1);
+          if (key >= Sk || (causal && row < key)) x = NEG_INF;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        rs[e >> 1] += p;  // l sums the unrounded p (this lane's share)
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // O += P V, P rounded to bf16 in registers
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      const uint32_t pa[4] = {
+          mma::pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+          mma::pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+          mma::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+          mma::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t vf[4];  // B fragments of columns 16dp .. 16dp+15
+        mma::ldmatrix_x4_trans(
+            vf, Vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * T::LD +
+                    dp * 16 + (lane >> 4) * 8);
+        mma::mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
+        mma::mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);  // the row's four lanes
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    const int row = w0 + g + 8 * r;
+    if (row >= Sq) continue;
+    bf16* dst = o + b * os.b + row * os.s + h * os.h + 2 * t4;
+    const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          mma::pack_bf16(acc[j][2 * r] / den, acc[j][2 * r + 1] / den);
+  }
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const long long* st, int B, int H, int KH, int Sq, int Sk,
+           float scale, int causal, cudaStream_t stream) {
+  auto kernel = flash_tc_kernel<DH>;
+  const size_t bytes = Tile<DH>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, H / KH,
+      Sq, Sk, scale * 1.4426950408889634f, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q, o (B, Sq, H, dh); k, v (B, Sk, KH, dh); `strides` holds the batch,
 // sequence and head strides of q, k, v and o, in elements, in that order
-// (12 values, host memory).  dtype: 0 float32, 1 bfloat16.  1 <= dh <=
-// 256, H % KH == 0.  Returns cudaGetLastError() after the launch.
+// (12 values, host memory).  dtype: 0 float32, 1 bfloat16.  variant: 0
+// "simt" (1 <= dh <= 256), 1 "tc" (bfloat16, dh 64 or 128, 16-byte
+// aligned pointers, strides multiples of 8 elements: the wrapper's rule).
+// H % KH == 0.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* strides, int B, int H,
                                       int KH, int Sq, int Sk, int dh,
                                       float scale, int causal, int dtype,
-                                      void* stream) {
+                                      int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype == 1 && dh == 64)
+      return tc::launch<64>(q, k, v, o, strides, B, H, KH, Sq, Sk, scale,
+                            causal, s);
+    if (dtype == 1 && dh == 128)
+      return tc::launch<128>(q, k, v, o, strides, B, H, KH, Sq, Sk, scale,
+                             causal, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, o, strides, B, H, KH, Sq, Sk, dh,
                                    scale, causal, s);

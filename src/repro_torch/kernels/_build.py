@@ -15,7 +15,9 @@ falls back to a plain version on CUDA tensors.
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its path
-went through the kernels.
+went through the kernels.  ``VARIANTS`` counts the same launches by
+(name, variant) for the kernels that come in variants (flash attention's
+``"tc"``/``"simt"``, matmul's four), so a run can also show which one ran.
 """
 from __future__ import annotations
 
@@ -37,6 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name -> launches since the last ``LAUNCHES.clear()``
 LAUNCHES: collections.Counter = collections.Counter()
+
+#: (kernel name, variant) -> launches since the last ``VARIANTS.clear()``
+VARIANTS: collections.Counter = collections.Counter()
 
 #: dtype codes of the C entries that take float32 or bfloat16 tensors
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -125,9 +130,9 @@ def load() -> ctypes.CDLL:
         lib.fused_sm_smem_bytes.restype = ctypes.c_long
         lib.flash_attention_launch.argtypes = (
             [p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [i] * 6
-            + [ctypes.c_float, i, i, p])
+            + [ctypes.c_float, i, i, i, p])
         lib.flash_attention_launch.restype = i
-        lib.matmul_launch.argtypes = [p] * 3 + [i] * 4 + [p]
+        lib.matmul_launch.argtypes = [p] * 3 + [i] * 5 + [p]
         lib.matmul_launch.restype = i
         _lib = lib
     return _lib

@@ -10,14 +10,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.pipeline.state import resolve_device
 
-def from_numpy(tree, device="cpu"):
+
+def from_numpy(tree, device="cuda"):
     """The same tree of torch tensors on ``device``; bf16 goes through
-    float32, which holds every bf16 value exactly."""
+    float32, which holds every bf16 value exactly.  Like every entry point
+    of the port it runs on the card unless asked for the CPU
+    (``device="cpu"``), and raises without one."""
+    return _from_numpy(tree, resolve_device(device))
+
+
+def _from_numpy(tree, device):
     if isinstance(tree, dict):
-        return {k: from_numpy(v, device) for k, v in tree.items()}
+        return {k: _from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(from_numpy(v, device) for v in tree)
+        return type(tree)(_from_numpy(v, device) for v in tree)
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)

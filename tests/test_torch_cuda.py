@@ -99,32 +99,63 @@ FLASH_SHAPES = [(256, 256, 64, True), (256, 256, 128, True),
                 (40, 72, 16, True), (512, 512, 256, False)]
 
 
+def expected_flash_variant(dtype, dh, forced):
+    """bf16 at dh 64/128 takes the tensor cores unless the SIMT variant
+    is forced; float32 and other widths take SIMT."""
+    if forced:
+        return forced
+    return "tc" if dtype == torch.bfloat16 and dh in (64, 128) else "simt"
+
+
+@pytest.mark.parametrize("forced", [None, "simt"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Sq,Sk,dh,causal", FLASH_SHAPES)
 def test_flash_attention_kernel_matches_plain(card, Sq, Sk, dh, causal,
-                                              dtype):
+                                              dtype, forced):
     g = torch.Generator(device=card).manual_seed(Sq + dh)
     q, k, v = (torch.randn((3, s, dh), generator=g, device=card).to(dtype)
                for s in (Sq, Sk, Sk))
     _build.LAUNCHES.clear()
-    got = flash_attention(q, k, v, causal=causal)
+    _build.VARIANTS.clear()
+    got = flash_attention(q, k, v, causal=causal, variant=forced)
     assert _build.LAUNCHES["flash_attention"] == 1
+    assert _build.VARIANTS == {
+        ("flash_attention", expected_flash_variant(dtype, dh, forced)): 1}
     want = flash_attention_ref(q, k, v, causal=causal)
     tol = 2e-3 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("S", [16, 200, 512])
-def test_flash_attention_gqa_reads_strided_cache(card, S):
-    """The model's call: q (B, S, H, dh), k/v a prefix of a longer cache."""
-    g = torch.Generator(device=card).manual_seed(S)
-    q = torch.randn((2, S, 8, 128), generator=g, device=card).bfloat16()
-    ck, cv = (torch.randn((2, S + 40, 2, 128), generator=g, device=card)
+@pytest.mark.parametrize("forced", [None, "simt"])
+@pytest.mark.parametrize("S,dh", [(16, 128), (200, 128), (512, 128),
+                                  (200, 64), (512, 64)])
+def test_flash_attention_gqa_reads_strided_cache(card, S, dh, forced):
+    """The model's call: q (B, S, H, dh), k/v a prefix of a longer cache,
+    causal, 8 query heads on 2 KV heads."""
+    g = torch.Generator(device=card).manual_seed(S + dh)
+    q = torch.randn((2, S, 8, dh), generator=g, device=card).bfloat16()
+    ck, cv = (torch.randn((2, S + 40, 2, dh), generator=g, device=card)
               .bfloat16() for _ in range(2))
-    got = flash_attention_gqa(q, ck[:, :S], cv[:, :S], causal=True)
+    _build.VARIANTS.clear()
+    got = flash_attention_gqa(q, ck[:, :S], cv[:, :S], causal=True,
+                              variant=forced)
+    assert _build.VARIANTS == {("flash_attention", forced or "tc"): 1}
     want = mha_ref(q, ck[:, :S], cv[:, :S], causal=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
                                atol=3e-2)
+
+
+def test_flash_attention_misaligned_q_takes_simt(card):
+    g = torch.Generator(device=card).manual_seed(1)
+    buf = torch.randn(2 * 128 * 4 * 64 + 1, generator=g, device=card)
+    q = buf.bfloat16()[1:].view(2, 128, 4, 64)
+    k, v = (torch.randn((2, 128, 2, 64), generator=g, device=card).bfloat16()
+            for _ in range(2))
+    _build.VARIANTS.clear()
+    got = flash_attention_gqa(q, k, v, causal=True)
+    assert _build.VARIANTS == {("flash_attention", "simt"): 1}
+    torch.testing.assert_close(got.float(), mha_ref(q, k, v).float(),
+                               rtol=3e-2, atol=3e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -138,6 +169,27 @@ def test_matmul_kernel_matches_plain(card, shape, dtype):
     _build.LAUNCHES.clear()
     got = ops.matmul(a, b, bm=128, bn=128, bk=128)
     assert _build.LAUNCHES["matmul"] == 1 and got.dtype == dtype
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), matmul_ref(a, b).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kind", [((200, 200, 200), ""),
+                                        ((512, 512, 512), ""),
+                                        ((300, 100, 50), "_scalar")])
+def test_matmul_default_blocks(card, shape, kind, dtype):
+    """The default blocks (512, clipped to the dims): 200^3 is ragged
+    against the kernel's 64 x 32 tiles; K = 100, N = 50 are not whole
+    16-byte rows, so both dtypes take their scalar-load variants."""
+    M, K, N = shape
+    g = torch.Generator(device=card).manual_seed(M + K)
+    a = torch.randn((M, K), generator=g, device=card).to(dtype)
+    b = torch.randn((K, N), generator=g, device=card).to(dtype)
+    _build.VARIANTS.clear()
+    got = matmul(a, b)
+    base = "simt" if dtype == torch.float32 else "tc"
+    assert _build.VARIANTS == {("matmul", base + kind): 1}
     tol = 1e-3 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), matmul_ref(a, b).float(),
                                rtol=tol, atol=tol)

@@ -1,0 +1,160 @@
+"""The port's kernel-variant rules, on the CPU.
+
+Flash attention and matmul each come in variants on the card (the
+tensor-core and SIMT flash kernels; matmul's float32 and bfloat16 kernels,
+each with a scalar-load form for rows that are not whole 16-byte vectors).
+A pure function of dtypes, shapes, pointers and strides picks one; these
+tests pin that rule.  The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``): CPU tensors take the
+plain versions whatever the variant, and count no launch.  Also here: the
+parameter carrier ``convert.from_numpy`` defaults to the card like every
+entry point of the port.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import matmul as tmm
+from repro_torch.kernels.ref import flash_attention_ref, mha_ref
+from repro_torch.models import convert
+
+
+def qkv(B=2, S=64, H=8, KH=4, dh=128, dtype=torch.bfloat16, T=None):
+    """q (B, S, H, dh) and k/v the first S rows of a (B, T, KH, dh) cache."""
+    g = torch.Generator().manual_seed(0)
+    T = T or S
+    q = torch.randn((B, S, H, dh), generator=g).to(dtype)
+    ck, cv = (torch.randn((B, T, KH, dh), generator=g).to(dtype)
+              for _ in range(2))
+    return q, ck[:, :S], cv[:, :S]
+
+
+def misaligned(shape, dtype):
+    """A contiguous tensor one element past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_bf16_contiguous_takes_tc(dh):
+    assert tfa.variant(*qkv(dh=dh)) == "tc"
+
+
+def test_flash_bf16_cache_prefix_takes_tc():
+    """The prefill's call: k/v are ``ck[:, :S]`` of a longer cache, read
+    in place; its strides are whole 16-byte rows."""
+    q, k, v = qkv(S=200, T=232)
+    assert not k.is_contiguous()
+    assert tfa.variant(q, k, v) == "tc"
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 128),
+                                      (torch.float32, 64),
+                                      (torch.bfloat16, 40),
+                                      (torch.bfloat16, 256),
+                                      (torch.bfloat16, 16)])
+def test_flash_other_dtypes_and_widths_take_simt(dtype, dh):
+    assert tfa.variant(*qkv(dh=dh, dtype=dtype)) == "simt"
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_flash_misaligned_pointer_takes_simt(which):
+    x = list(qkv())
+    x[which] = misaligned(x[which].shape, torch.bfloat16)
+    assert x[which].data_ptr() % 16
+    assert tfa.variant(*x) == "simt"
+
+
+def test_flash_stride_off_the_vector_takes_simt():
+    """Rows 8-aligned in the pointer but a sequence stride of 129
+    elements: not every row starts on a 16-byte boundary."""
+    q, k, v = qkv()
+    wide = torch.zeros((2, 64, 4, 129), dtype=torch.bfloat16)
+    k = wide[..., :128]
+    assert k.data_ptr() % 16 == 0 and k.stride(2) % 8
+    assert tfa.variant(q, k, v) == "simt"
+
+
+@pytest.mark.parametrize("forced", [None, "simt"])
+def test_flash_on_cpu_takes_the_plain_version(forced):
+    """CPU tensors take the plain version whatever the variant, and no
+    launch is counted."""
+    q, k, v = qkv(S=64)
+    _build.LAUNCHES.clear()
+    _build.VARIANTS.clear()
+    got = tfa.flash_attention_gqa(q, k, v, causal=True, variant=forced)
+    torch.testing.assert_close(got, mha_ref(q, k, v, causal=True))
+    q3, k3, v3 = (x.transpose(1, 2).reshape(-1, 64, 128)[:4].contiguous()
+                  for x in (q, k, v))
+    got = tfa.flash_attention(q3, k3, v3, causal=True, variant=forced)
+    torch.testing.assert_close(got, flash_attention_ref(q3, k3, v3))
+    assert not _build.LAUNCHES and not _build.VARIANTS
+
+
+@pytest.mark.parametrize("forced", ["tc", "wgmma"])
+def test_flash_forces_only_the_simt_variant(forced):
+    """The rule alone picks the tensor-core variant; a caller may only
+    force the SIMT one."""
+    with pytest.raises(ValueError, match="variant"):
+        tfa.flash_attention_gqa(*qkv(), variant=forced)
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.float32, "simt"),
+                                        (torch.bfloat16, "tc")])
+@pytest.mark.parametrize("shape", [(512, 512, 512), (200, 200, 200),
+                                   (128, 384, 256)])
+def test_matmul_vector_variants(dtype, want, shape):
+    """Whole 16-byte rows: the dtype's kernel with vector copies; 200^3 is
+    ragged against the 64 x 32 tiles (the kernel masks it) and the block
+    rule admits it with the default blocks."""
+    M, K, N = shape
+    a, b = torch.ones((M, K), dtype=dtype), torch.ones((K, N), dtype=dtype)
+    assert tmm.variant(a, b) == want
+    assert torch.equal(tmm.matmul(a, b), torch.full((M, N), float(K),
+                                                    dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype,K,N,want", [
+    (torch.float32, 100, 50, "simt_scalar"),   # N % 4
+    (torch.float32, 50, 100, "simt"),          # A goes by 4-byte copies
+    (torch.bfloat16, 100, 64, "tc_scalar"),    # K % 8
+    (torch.bfloat16, 64, 100, "tc_scalar"),    # N % 8
+    (torch.bfloat16, 64, 64, "tc")])
+def test_matmul_ragged_rows_take_scalar_loads(dtype, K, N, want):
+    """Shapes the block rule admits (clipped blocks divide every dim)
+    whose rows are not whole 16-byte vectors."""
+    M = 300
+    g = torch.Generator().manual_seed(K + N)
+    a = torch.randn((M, K), generator=g).to(dtype)
+    b = torch.randn((K, N), generator=g).to(dtype)
+    assert tmm.variant(a, b) == want
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(tmm.matmul(a, b).float(),
+                               (a.float() @ b.float()).to(dtype).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_misaligned_pointer_takes_scalar_loads(dtype):
+    a = torch.ones((64, 64), dtype=dtype)
+    b = misaligned((64, 64), dtype)
+    assert tmm.variant(a, b).endswith("_scalar")
+    if dtype == torch.bfloat16:
+        assert tmm.variant(misaligned((64, 64), dtype),
+                           torch.ones((64, 64), dtype=dtype)) == "tc_scalar"
+    else:   # float32 copies A by 4-byte copies: its alignment is free
+        assert tmm.variant(misaligned((64, 64), dtype),
+                           torch.ones((64, 64), dtype=dtype)) == "simt"
+
+
+def test_from_numpy_defaults_to_the_card(monkeypatch):
+    tree = {"w": np.ones((2, 3), np.float32), "layers": (np.arange(4),)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_numpy(tree)
+    got = convert.from_numpy(tree, device="cpu")
+    assert got["w"].device.type == "cpu" and got["w"].dtype == torch.float32
+    assert isinstance(got["layers"], tuple)
+    assert torch.equal(got["layers"][0], torch.arange(4))

@@ -52,7 +52,7 @@ def model():
     jspec = jconfigs.reduced(jconfigs.get("qwen3_0p6b"))
     tspec = tconfigs.reduced(tconfigs.get("qwen3-0.6b"))
     jp = japi.init(jax.random.key(0), jspec)
-    tp = convert.from_numpy(jax.tree.map(np.asarray, jp))
+    tp = convert.from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jspec, tspec, jp, tp
 
 
