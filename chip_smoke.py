@@ -35,7 +35,9 @@ Phases, each printed as it ends:
 7. timings: each kernel's time at the shape its path gives it, its plain
    version's time on the same inputs (``simt_alu``'s on the card; the
    fused kernel's on the host CPU, plus the plain path on the card over a
-   cycle budget), and its bound;
+   cycle budget), and its bound; the fused kernel on one dispatch group
+   of each of the five programs at n=256, in µs per simulated step, with
+   the number of a block's steps that took its read/write barrier;
 8. ``flash_attention`` and ``matmul`` against their plain versions on the
    card: the sweep of ``tests/test_kernels.py`` plus a ragged length
    (S=200), large logits, and the model's strided GQA call, each bf16 case
@@ -66,8 +68,9 @@ version's and library call's) is device time: CUDA events around many
 calls queued behind a spin kernel, so that the device runs them back to
 back (``device_ms``); ``event_ms`` is the CUDA-event time of the same
 calls launched back to back on an idle device, which for a call shorter
-than its launch measures the host.  The fused kernel's time is CUDA-event time less its input copy's;
-serving times are host clocks around work that ends in a device sync.
+than its launch measures the host.  The fused kernel's time is device time
+less that of the snapshot copy each launch needs; serving times are host
+clocks around work that ends in a device sync.
 """
 from __future__ import annotations
 
@@ -424,78 +427,121 @@ def time_simt_alu(rng, launches_on_path, max_err):
 PLAIN_CARD_BUDGET = 4000
 
 
-def time_fused(launches_on_path):
-    """One dispatch group of the main path, 8 matmul n=256 blocks: the
-    kernel on the card against the plain version on the host CPU, whole,
-    and against the plain version on the card over a cycle budget."""
-    from repro_torch.core.machine import MachineConfig
-    from repro_torch.core.pipeline.fused import (C_STEPS, fused_sm_run,
-                                                 staged_run)
+def fused_group(name, n=256, positions=8):
+    """The first dispatch group of ``name`` at ``n`` as the executor
+    forms it: the program (1, C, 10), the geometry rows of the first
+    ``positions`` blocks (fewer if the grid is smaller), their (P, G)
+    gmem snapshots (host tensors), and the warps a block needs."""
     from repro_torch.core.programs import ALL
     from repro_torch.runtime import registry as reg
-    mod, n, P = ALL["matmul"], 256, 8
-    cfg = MachineConfig()
+    mod = ALL[name]
     code = torch.as_tensor(mod.build(n))[None].contiguous()
     g0 = mod.make_gmem(np.random.default_rng(4), n)
-    G = reg.bucket_gmem_len(len(g0))
-    gmem = torch.zeros((P, G), dtype=torch.int32)
-    gmem[:, :len(g0)] = torch.as_tensor(g0)
     (gx, gy), (bdx, bdy) = mod.launch(n)
+    P = min(positions, gx * gy)
     geom = np.array([[0, bdx * bdy, bdx, bdy, p % gx, p // gx, gx, gy]
                      for p in range(P)], np.int32)
+    gmem = torch.zeros((P, reg.bucket_gmem_len(len(g0))), dtype=torch.int32)
+    gmem[:, :len(g0)] = torch.as_tensor(g0)
+    return code, geom, gmem, -(-bdx * bdy // 32)
+
+
+def time_group(name):
+    """One dispatch group of ``name`` at n=256 on the card: device ms per
+    launch (spin-queued, less the snapshot copy each launch needs), steps,
+    store steps (those that take the read/write barrier) and the bound."""
+    from repro_torch.core.machine import MachineConfig
+    from repro_torch.core.pipeline.fused import (C_STEPS, C_STORE_STEPS,
+                                                 fused_sm_run, predecode)
+    cfg = MachineConfig()
+    code, geom, gmem, W = fused_group(name)
     code_d, gmem_d = code.cuda(), gmem.cuda()
+    pre = dict(records=predecode(code_d, cfg),
+               geom_dev=torch.as_tensor(geom, device="cuda"))
     work = gmem_d.clone()
 
     def kernel():
         work.copy_(gmem_d)
-        return fused_sm_run(cfg, 8, code_d, geom, work)
+        return fused_sm_run(cfg, W, code_d, geom, work, **pre)
+
+    k_ms = device_ms(kernel, 10) - device_ms(lambda: work.copy_(gmem_d), 10)
+    _, _, ctr = fused_sm_run(cfg, W, code_d, geom, gmem_d.clone(), **pre)
+    ctr = ctr.cpu()
+    P, G = gmem.shape
+    nbytes = (code.numel() + geom.size + 3 * P * G
+              + ctr.numel()) * 4          # gmem in; gmem, gw, counters out
+    lane_ops = int(ctr[:, 28:56].sum())   # simulated lane-instructions
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, lane_ops / INT32_OPS_PER_S
+    steps = int(ctr[:, C_STEPS].max())
+    store = int(ctr[ctr[:, C_STEPS].argmax(), C_STORE_STEPS])
+    out = dict(ms=k_ms, steps=steps, store_steps=store, P=P, W=W,
+               us_per_step=k_ms / steps * 1e3,
+               bound_ms=max(t_bytes, t_ops) * 1e3, nbytes=nbytes,
+               lane_ops=lane_ops,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"[timing] fused_sm_run {name} n=256, {P} blocks x {W} warps, "
+        f"{steps} steps a block, {store} of them with the read/write "
+        f"barrier ({store / steps:.1%}): {k_ms:.4f} ms per launch "
+        f"({out['us_per_step']:.4f} us per step); bound "
+        f"{out['bound_ms']:.6f} ms ({nbytes} B, {lane_ops} "
+        f"lane-instructions)")
+    return out
+
+
+def time_fused(launches_on_path):
+    """One dispatch group of each paper program at n=256 on the card; the
+    matmul group (8 blocks) also against the plain version on the host
+    CPU, whole, and on the card over a cycle budget."""
+    from repro_torch.core.machine import MachineConfig
+    from repro_torch.core.pipeline.fused import (C_STEPS, fused_sm_run,
+                                                 staged_run)
+    from repro_torch.core.programs import ALL
+    groups = {name: time_group(name) for name in sorted(ALL)}
+    cfg = MachineConfig()
+    code, geom, gmem, W = fused_group("matmul")
+    code_d, gmem_d = code.cuda(), gmem.cuda()
 
     def max_err(got, want):
         return max((a.cpu().long() - b.cpu().long()).abs().max().item()
                    for a, b in zip(got, want))
 
-    k_ms = cuda_ms(kernel, 5) - cuda_ms(lambda: work.copy_(gmem_d), 5)
-    mem_k, wrt_k, ctr_k = fused_sm_run(cfg, 8, code_d, geom, gmem_d.clone())
+    got = fused_sm_run(cfg, W, code_d, geom, gmem_d.clone())
     t0 = time.perf_counter()
-    plain = staged_run(replace(cfg, execute_backend="torch"), 8, code, geom,
+    plain = staged_run(replace(cfg, execute_backend="torch"), W, code, geom,
                        gmem.clone())
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max_err((mem_k, wrt_k, ctr_k), plain)
+    err = max_err(got, plain)
     # the plain version on the card, over PLAIN_CARD_BUDGET cycles a block
     bcfg = replace(cfg, max_cycles=PLAIN_CARD_BUDGET)
-    short_k = fused_sm_run(bcfg, 8, code_d, geom, gmem_d.clone())
+    short_k = fused_sm_run(bcfg, W, code_d, geom, gmem_d.clone())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    short_p = staged_run(replace(bcfg, execute_backend="torch"), 8, code_d,
+    short_p = staged_run(replace(bcfg, execute_backend="torch"), W, code_d,
                          geom, gmem_d.clone())
     torch.cuda.synchronize()
     card_plain_ms = (time.perf_counter() - t0) * 1e3
     err = max(err, max_err(short_k, short_p))
     if err:
         raise AssertionError("fused_sm_run != staged_run")
-    words = P * G
-    nbytes = (code.numel() + geom.size + 3 * words
-              + ctr_k.numel()) * 4          # gmem in; gmem, gw, counters out
-    lane_ops = int(ctr_k[:, 28:56].sum().item())   # simulated lane-instrs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, lane_ops / INT32_OPS_PER_S
-    bound = max(t_bytes, t_ops) * 1e3
-    steps = int(ctr_k[:, C_STEPS].max().item())
+    mm = groups["matmul"]
     short_steps = int(short_p[2][:, C_STEPS].max().item())
-    log(f"[timing] fused_sm_run matmul n=256, {P} blocks x 8 warps, {steps} "
-        f"steps each: {k_ms:.3f} ms per launch ({k_ms / steps * 1e3:.3f} "
-        f"us per step); plain staged path on the host CPU {plain_ms:.1f} ms "
-        f"(bit-exact); bound {bound:.6f} ms ({nbytes} B, {lane_ops} "
-        f"lane-instructions)")
-    log(f"[timing] plain staged path on the card, first {short_steps} steps "
-        f"(max_cycles={PLAIN_CARD_BUDGET}), bit-exact with the kernel: "
-        f"{card_plain_ms:.1f} ms, {card_plain_ms / short_steps:.3f} ms per "
-        f"step of the group (kernel: {k_ms / steps * 1e3:.3f} us)")
+    log(f"[timing] fused_sm_run matmul n=256 group: every output bit-exact "
+        f"with the plain staged path on the host CPU ({plain_ms:.1f} ms) "
+        f"and, over max_cycles={PLAIN_CARD_BUDGET} ({short_steps} steps), "
+        f"on the card ({card_plain_ms:.1f} ms, "
+        f"{card_plain_ms / short_steps:.3f} ms per step of the group; "
+        f"kernel {mm['us_per_step']:.4f} us)")
+    log("[timing] fused_sm_run us per step at n=256: " + ", ".join(
+        f"{k} {v['us_per_step']:.4f}" for k, v in groups.items()))
     return dict(name="fused_sm_run", route="cuda", variant="single",
                 source="src/repro_torch/csrc/fused_sm.cu",
                 replaces=FUSED_REPLACES, launches=launches_on_path,
-                max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+                max_abs_err=err, ms=mm["ms"], plain_ms=plain_ms,
+                bound_ms=mm["bound_ms"], bound_by=mm["bound_by"],
+                library_ms=None, us_per_step={
+                    k: v["us_per_step"] for k, v in groups.items()},
+                store_steps={k: [v["store_steps"], v["steps"]]
+                             for k, v in groups.items()})
 
 
 # ------------------------------------------------------------ phase 8

@@ -25,7 +25,7 @@ import torch
 from .. import isa
 from .state import (EXECUTE_BACKENDS, FINISHED, READY, WAIT, Counters,
                     MachineConfig, SMState, _pack, _unpack, as_int32,
-                    init_state, resolve_device)
+                    clamp_index, init_state, resolve_device)
 from .fetch_decode import Decoded, fetch_decode
 from .read import Operands, read_operands
 from .execute import execute
@@ -66,14 +66,22 @@ def sm_step(cfg: MachineConfig, code: torch.Tensor, lut: torch.Tensor,
 def block_loop(cfg: MachineConfig, code: torch.Tensor, block_dim_xy,
                block_xy, grid_xy, st: SMState):
     """Step ``st`` until every warp is FINISHED or ``max_cycles`` is
-    reached; returns (final state, steps taken)."""
+    reached; returns (final state, steps taken, store steps).  A store
+    step is one in which some live warp's instruction is STS or STG: the
+    steps in which the fused kernel orders its loads before its stores
+    with a second barrier (a () int32 tensor, kept on the device)."""
     lut = cond_lut(code.device)
+    ops = code[:, isa.F_OP]
+    is_store = (ops == isa.STG) | (ops == isa.STS)
     steps = 0
+    store_steps = torch.zeros((), dtype=torch.int32, device=code.device)
     while bool(((st.wstate != FINISHED).any()
                 & (st.counters.cycles < cfg.max_cycles)).item()):
+        store_steps += (is_store[clamp_index(st.pc, code.shape[0])]
+                        & (st.wstate != FINISHED)).any()
         st = sm_step(cfg, code, lut, block_dim_xy, block_xy, grid_xy, st)
         steps += 1
-    return st, steps
+    return st, steps, store_steps
 
 
 def run_block_body(cfg: MachineConfig, n_warps: int, code: torch.Tensor,
@@ -85,7 +93,8 @@ def run_block_body(cfg: MachineConfig, n_warps: int, code: torch.Tensor,
     ``(gmem, written-mask, Counters)`` with the store-sentinel word
     stripped."""
     st0 = init_state(cfg, n_warps, block_dim, gmem)
-    st, _ = block_loop(cfg, code, block_dim_xy, block_xy, grid_xy, st0)
+    st, _, _ = block_loop(cfg, code, block_dim_xy, block_xy, grid_xy,
+                          st0)
     return st.gmem[:-1], st.gw[:-1], st.counters
 
 

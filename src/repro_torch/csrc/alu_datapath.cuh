@@ -32,8 +32,28 @@ constexpr int IS_SMEM_MASK = 0x1800000;
 constexpr int NUM_SPECIAL_REGS = 11;
 }  // namespace isa
 
+// c[op] for op in [0, 32), 0 outside: a tree of selects on the opcode's
+// five bits, with no branch (the indices are constants once unrolled, so
+// c lives in registers).
+__device__ __forceinline__ int select_by_opcode(int op, const int (&c)[32]) {
+  int v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) v[i] = (op & 1) ? c[2 * i + 1] : c[2 * i];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = (op & 2) ? v[2 * i + 1] : v[2 * i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = (op & 4) ? v[2 * i + 1] : v[2 * i];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) v[i] = (op & 8) ? v[2 * i + 1] : v[2 * i];
+  const int r = (op & 16) ? v[1] : v[0];
+  return static_cast<unsigned>(op) < 32u ? r : 0;
+}
+
 // One lane of the SP array.  `res` is zero outside `mask`; `nib` is the
 // ISETP SZCO nibble of s1 - s2, zero outside `mask` and outside ISETP.
+// Every opcode's result is computed and one is selected by the opcode's
+// bits: the opcode is uniform across a warp in both kernels, and a select
+// tree costs less than the branch tree a switch compiles to.
 template <bool ENABLE_MUL, int NUM_READ_OPERANDS>
 __device__ __forceinline__ void alu_datapath(int op, int s1, int s2, int s3,
                                              bool cond, int s2r, bool mask,
@@ -41,33 +61,27 @@ __device__ __forceinline__ void alu_datapath(int op, int s1, int s2, int s3,
   const uint32_t u1 = static_cast<uint32_t>(s1);
   const uint32_t u2 = static_cast<uint32_t>(s2);
   const uint32_t sh = u2 & 31u;
-  int r = 0;
-  switch (op) {
-    case isa::MOV: r = s2; break;
-    case isa::IADD: r = static_cast<int>(u1 + u2); break;
-    case isa::ISUB: r = static_cast<int>(u1 - u2); break;
-    case isa::IMUL:
-      if (ENABLE_MUL) r = static_cast<int>(u1 * u2);
-      break;
-    case isa::IMAD:  // needs both the multiplier and the third read port
-      if (ENABLE_MUL && NUM_READ_OPERANDS >= 3)
-        r = static_cast<int>(u1 * u2 + static_cast<uint32_t>(s3));
-      break;
-    case isa::IMIN: r = s1 < s2 ? s1 : s2; break;
-    case isa::IMAX: r = s1 > s2 ? s1 : s2; break;
-    case isa::IABS: r = s1 < 0 ? static_cast<int>(0u - u1) : s1; break;
-    case isa::AND: r = s1 & s2; break;
-    case isa::OR: r = s1 | s2; break;
-    case isa::XOR: r = s1 ^ s2; break;
-    case isa::NOT: r = ~s1; break;
-    case isa::SHL: r = static_cast<int>(u1 << sh); break;
-    case isa::SHR: r = static_cast<int>(u1 >> sh); break;
-    case isa::SAR: r = s1 >> sh; break;  // arithmetic on signed int
-    case isa::ISET: r = cond ? 1 : 0; break;
-    case isa::SELP: r = cond ? s1 : s2; break;
-    case isa::S2R: r = s2r; break;
-    default: break;
-  }
+  int c[32] = {};
+  c[isa::MOV] = s2;
+  c[isa::IADD] = static_cast<int>(u1 + u2);
+  c[isa::ISUB] = static_cast<int>(u1 - u2);
+  if (ENABLE_MUL) c[isa::IMUL] = static_cast<int>(u1 * u2);
+  if (ENABLE_MUL && NUM_READ_OPERANDS >= 3)  // multiplier and third port
+    c[isa::IMAD] = static_cast<int>(u1 * u2 + static_cast<uint32_t>(s3));
+  c[isa::IMIN] = s1 < s2 ? s1 : s2;
+  c[isa::IMAX] = s1 > s2 ? s1 : s2;
+  c[isa::IABS] = s1 < 0 ? static_cast<int>(0u - u1) : s1;
+  c[isa::AND] = s1 & s2;
+  c[isa::OR] = s1 | s2;
+  c[isa::XOR] = s1 ^ s2;
+  c[isa::NOT] = ~s1;
+  c[isa::SHL] = static_cast<int>(u1 << sh);
+  c[isa::SHR] = static_cast<int>(u1 >> sh);
+  c[isa::SAR] = s1 >> sh;  // arithmetic on signed int
+  c[isa::ISET] = cond ? 1 : 0;
+  c[isa::SELP] = cond ? s1 : s2;
+  c[isa::S2R] = s2r;
+  const int r = select_by_opcode(op, c);
   const int d = static_cast<int>(u1 - u2);
   const int f = (d < 0 ? 1 : 0) | (d == 0 ? 2 : 0) | (u1 < u2 ? 4 : 0) |
                 (((s1 ^ s2) & (s1 ^ d)) < 0 ? 8 : 0);

@@ -6,37 +6,58 @@
 // (repro/core/pipeline/__init__.py::run_block_body) and the vmap over
 // schedule positions (repro/runtime/executor.py::_run_positions).  The TPU
 // kernel runs one lockstep step per launch inside a lax.while_loop; here
-// one launch runs a whole dispatch group to completion:
+// one launch runs a whole dispatch group to completion: one CTA per
+// schedule position, simulated warp w is CUDA warp w, lane for lane, so a
+// lane mask is a ballot and a lane count __popc.  Threads at or beyond the
+// block's size start EXITed; a warp without threads starts FINISHED.
 //
-//   * one CTA per schedule position; simulated warp w is CUDA warp w, lane
-//     for lane, so a lane mask is __ballot_sync and a lane count __popc;
-//     threads at or beyond the block's size start EXITed, and a warp
-//     without threads starts FINISHED;
-//   * registers ([W][R][32], so the lanes of a warp hit distinct banks),
-//     predicates, warp stacks, the program, the condition LUT, the SM's
-//     shared memory and the block counters live in shared memory; the
-//     warp-uniform control state (pc, wstate, sp, alive/active masks)
-//     lives in registers, identical in every lane of a warp;
-//   * each position's private gmem snapshot and written mask live in
-//     global memory, (P, G) int32; the executor merges them afterwards;
-//   * every step is a read phase (barrier release, fetch, .S pop, operand
-//     and memory reads, ALU), a __syncthreads, and a write phase (register,
-//     predicate, smem and gmem stores, warp stack, PC, counters): one
-//     step's stores stay invisible to other warps until the next step, as
-//     in the reference's scatters;
-//   * the loop runs until no warp is left or cycles >= max_cycles, with
-//     __syncthreads_or deciding it; there is no host sync per step.
+// What bounds it: latency, not bytes or operations.  A dispatch group
+// fills P of the card's 132 SMs with one CTA each, and every simulated
+// step is one dependent chain per warp ended by a block-wide barrier, with
+// one or two warps on each of the SM's schedulers to hide it, so the time
+// is (steps) x (one step's chain + barrier), far above the bytes bound.
+// The design shortens that chain:
+//
+//   * one __syncthreads per step.  At the end of its step each warp
+//     publishes one slot {flags, cycles so far}: still live, READY, and
+//     whether the instruction at its next pc is STS or STG.  Slots are
+//     double-buffered by step parity, so the one barrier at the step
+//     boundary orders both their writes and their reads.  After it every
+//     warp reduces the W slots with __reduce_or_sync/__reduce_add_sync:
+//     loop exit, barrier release and the cycle total against max_cycles.
+//     Only a step in which some slot says "store" takes a second barrier
+//     between its loads and its stores, so no load of step t sees a store
+//     of step t (stores of step t land before the next step's boundary);
+//   * no shared atomics in the step: op_issues and op_lanes are counted in
+//     registers, lane k of a warp holding opcode k's two counts; cycles,
+//     stack ops, max_sp and overflow are per-warp registers.  All of them
+//     are reduced into the position's counter row once, after the loop;
+//   * predecoded instructions: core/pipeline/fused.py::predecode turns
+//     each (10,) instruction into one 16-byte record (REC_* below) with
+//     the register and predicate indices already wrapped, "out of range"
+//     explicit, the LUT row, the cycle cost and the write/load/store/
+//     control tests resolved; a fetch is one vector shared load;
+//   * warp-private work before the barrier: at the end of step t a warp
+//     fetches step t+1's record and does all that depends on its own state
+//     only (operand gathers, guard LUT and its ballot, stack top, ALU
+//     result, memory address).  After the barrier remain the vote, the
+//     LDS/LDG, and the masks that depend on whether the warp issues;
+//   * few branches on the chain: the ALU selects its result by the
+//     opcode's bits (alu_datapath.cuh), S2R reads a table, the writes are
+//     predicated, and the control stage (warp stack, EXIT, BAR, branch
+//     targets) runs only for the instructions the record marks as control
+//     or .S; every other instruction just moves to pc + 1.
+//
+// Registers ([W][R][32], lanes on distinct banks), predicates, warp
+// stacks, the program's records and the SM's shared memory live in shared
+// memory; each position's private gmem snapshot and written mask in
+// global memory, (P, G) int32, merged by the executor afterwards.
 //
 // Index semantics follow the JAX package exactly: indices wrap once like
 // Python; the code fetch, the stack reads and the LUT clamp; register and
 // predicate gathers fill INT_MIN out of range; scatters out of range drop.
 // Same-step stores to one address from different lanes have no defined
 // winner, as in the reference; parity holds on race-free programs.
-//
-// What bounds it: each simulated step is a few hundred dependent
-// instructions and three block-wide barriers per CTA, and a dispatch
-// group fills only P of the card's 132 SMs, so the kernel is bound by
-// per-step latency, far above its memory or operation bound.
 #include <climits>
 #include <cuda_runtime.h>
 
@@ -49,26 +70,39 @@ constexpr unsigned FULL = 0xffffffffu;
 // per-position counter row: op_issues[28], op_lanes[28], then these
 constexpr int C_CYCLES = 2 * isa::NUM_OPCODES, C_STACK_OPS = C_CYCLES + 1,
               C_MAX_SP = C_CYCLES + 2, C_OVERFLOW = C_CYCLES + 3,
-              C_STEPS = C_CYCLES + 4, N_CTR = C_CYCLES + 5;
+              C_STEPS = C_CYCLES + 4, C_STORE_STEPS = C_CYCLES + 5,
+              N_CTR = C_CYCLES + 6;
 // geometry row per position
 constexpr int G_LAUNCH = 0, G_BDIM = 1, G_BDX = 2, G_BDY = 3, G_BX = 4,
               G_BY = 5, G_GX = 6, G_GY = 7, N_GEOM = 8;
+// predecoded record, int4 {imm, regs, ctl, lut_cost}:
+//   .y  dst | src1 << 8 | src2 << 16 | src3 << 24, REG_NONE out of range
+//   .z  op | ctr << REC_CTR | pdst << REC_PDST | gpred << REC_GPRED |
+//       sel << REC_SEL | flags << REC_FLAGS and one bit each:
+//       REC_WREG (writes a register in range), REC_WPRED (ISETP to a
+//       predicate in range), REC_LOAD, REC_STORE, REC_CONTROL (BRA, SSY,
+//       EXIT, BAR or .S: the control stage runs)
+//   .w  LUT row (bit n: the guard holds on nibble n) | cost << REC_COST
+// op is OP_NONE outside the ISA, ctr CTR_NONE when the opcode wraps out
+// of the counter row.
+constexpr int REG_NONE = 255, PRED_NONE = 7, OP_NONE = 31, CTR_NONE = 31;
+constexpr int REC_CTR = 5, REC_PDST = 10, REC_GPRED = 13, REC_SEL = 16,
+              REC_FLAGS = 20, REC_WREG = 24, REC_WPRED = 25, REC_LOAD = 26,
+              REC_STORE = 27, REC_CONTROL = 28, REC_COST = 16;
+// slot flags a warp publishes for the next step
+constexpr int V_LIVE = 1, V_READY = 2, V_STORE = 4;
+static_assert(OP_NONE >= isa::NUM_OPCODES && CTR_NONE >= isa::NUM_OPCODES,
+              "the sentinels lie outside the opcodes");
 
-__device__ __forceinline__ int wrap_index(int i, int n) {
-  return i < 0 ? i + n : i;
-}
-// x[i] on a length-n axis: wrap, then clamp
 __device__ __forceinline__ int clamp_index(int i, int n) {
-  i = wrap_index(i, n);
+  i = i < 0 ? i + n : i;
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
-}
-__device__ __forceinline__ bool in_mask(int mask, int op) {
-  return op >= 0 && op < 32 && ((mask >> op) & 1);
 }
 
 struct Smem {
-  int* code;   // C * NUM_FIELDS
-  int* lut;    // 16 * 16
+  int4* rec;   // C records
+  int2* slot;  // 2 x W slots {flags, cycles}, by step parity
+  int* sreg;   // 16: the block's special registers, by S2R selector
   int* regs;   // W * R * 32
   int* pred;   // W * 4 * 32
   int* saddr;  // W * D
@@ -78,16 +112,20 @@ struct Smem {
   int* ctr;    // N_CTR
 };
 
-__host__ __device__ inline long smem_words(int W, int C, int R, int D, int S) {
-  return static_cast<long>(C) * isa::NUM_FIELDS + 256 + W * R * 32 +
-         W * 4 * 32 + 3L * W * D + S + N_CTR;
+constexpr int HEAD_WORDS = 16;  // sreg
+
+__host__ __device__ inline long smem_words(int W, int C, int R, int D,
+                                           int S) {
+  return 4L * C + 4L * W + HEAD_WORDS + W * R * 32L + W * 4 * 32L +
+         3L * W * D + S + N_CTR;
 }
 
-__device__ inline Smem carve(int* base, int W, int C, int R, int D, int S) {
+__device__ inline Smem carve(int4* base, int W, int C, int R, int D, int S) {
   Smem s;
-  s.code = base;
-  s.lut = s.code + C * isa::NUM_FIELDS;
-  s.regs = s.lut + 256;
+  s.rec = base;
+  s.slot = reinterpret_cast<int2*>(base + C);
+  s.sreg = reinterpret_cast<int*>(s.slot + 2 * W);
+  s.regs = s.sreg + HEAD_WORDS;
   s.pred = s.regs + W * R * 32;
   s.saddr = s.pred + W * 4 * 32;
   s.stype = s.saddr + W * D;
@@ -97,36 +135,57 @@ __device__ inline Smem carve(int* base, int W, int C, int R, int D, int S) {
   return s;
 }
 
-template <bool ENABLE_MUL, int NUM_READ_OPERANDS>
-__global__ void __launch_bounds__(1024)
-    fused_sm_run_kernel(const int* __restrict__ codes,
-                        const int* __restrict__ lut,
+// One warp's instruction for the coming step, and everything of it that
+// depends on the warp's own state alone.
+struct Fetched {
+  int imm, z, dst, cost, res, nib, s2, gaddr, saddr, top_addr, top_type;
+  unsigned guard_m, top_mask;
+  __device__ int op() const { return z & 31; }
+  __device__ int bit(int b) const { return (z >> b) & 1; }
+  __device__ int field(int b, int width) const {
+    return (z >> b) & ((1 << width) - 1);
+  }
+};
+
+// MAX_THREADS: the block size the kernel is built for (256 or 1024); the
+// smaller bound lets ptxas schedule the common 8-warp block more freely.
+template <bool ENABLE_MUL, int NUM_READ_OPERANDS, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    fused_sm_run_kernel(const int4* __restrict__ records,
                         const int* __restrict__ geom,
                         int* __restrict__ gmem_all, int* __restrict__ gw_all,
                         int* __restrict__ ctr_all, int C, int G, int R, int D,
-                        int S, int rows, int lat_g, int lat_s,
-                        int max_cycles) {
-  extern __shared__ int shm[];
+                        int S, int max_cycles) {
+  extern __shared__ int4 shm[];
   const int W = blockDim.x >> 5;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int* g = geom + blockIdx.x * N_GEOM;
-  const int bdim = g[G_BDIM], bdx = g[G_BDX], bdy = g[G_BDY];
-  const int bx = g[G_BX], by = g[G_BY], gx = g[G_GX], gy = g[G_GY];
+  const int bdim = g[G_BDIM], bdx = g[G_BDX];
+  const int tidx = tid % bdx, tidy = tid / bdx;
   int* gmem = gmem_all + static_cast<long>(blockIdx.x) * G;
   int* gw = gw_all + static_cast<long>(blockIdx.x) * G;
   Smem s = carve(shm, W, C, R, D, S);
 
   // ---- init_state ------------------------------------------------------
-  const int* code = codes + static_cast<long>(g[G_LAUNCH]) * C *
-                                isa::NUM_FIELDS;
-  for (int i = tid; i < C * isa::NUM_FIELDS; i += blockDim.x)
-    s.code[i] = code[i];
-  for (int i = tid; i < 256; i += blockDim.x) s.lut[i] = lut[i];
-  const long zero_words = smem_words(W, C, R, D, S) - C * isa::NUM_FIELDS -
-                          256;
+  const int4* rec = records + static_cast<long>(g[G_LAUNCH]) * C;
+  for (int i = tid; i < C; i += blockDim.x) s.rec[i] = rec[i];
+  if (tid == 0) {  // S2R selectors 2-7, 9 and 10; 0, 1 and 8 per thread
+    const int bdy = g[G_BDY], bx = g[G_BX], by = g[G_BY], gx = g[G_GX];
+    s.sreg[2] = bx;
+    s.sreg[3] = by;
+    s.sreg[4] = bdx;
+    s.sreg[5] = bdy;
+    s.sreg[6] = gx;
+    s.sreg[7] = g[G_GY];
+    s.sreg[9] = static_cast<int>(static_cast<unsigned>(by) * gx + bx);
+    s.sreg[10] = static_cast<int>(static_cast<unsigned>(bdx) * bdy);
+  }
+  const long zero_words =
+      smem_words(W, C, R, D, S) - 4L * C - 4L * W - HEAD_WORDS;
   for (long i = tid; i < zero_words; i += blockDim.x) s.regs[i] = 0;
   const unsigned exists = __ballot_sync(FULL, tid < bdim);
   unsigned alive = exists, active = exists;
+  unsigned part0 = exists;                     // active & alive
   int wstate = exists ? READY : FINISHED;
   int pc = 0, sp = 0;
   int* my_regs = s.regs + w * R * 32 + lane;   // register r at [r * 32]
@@ -134,188 +193,221 @@ __global__ void __launch_bounds__(1024)
   int* w_saddr = s.saddr + w * D;
   int* w_stype = s.stype + w * D;
   int* w_smask = s.smask + w * D;
-  int steps = 0;
+  // per-warp counters; lane k counts opcode k
+  unsigned cycles = 0;
+  int issues = 0, lanes = 0, stack_ops = 0, max_sp = 0, overflow = 0;
+  int steps = 0, store_steps = 0, total = 0;
+  const unsigned r_last = R - 1;
   __syncthreads();
 
-  while (true) {
+  // step t+1's warp-private work, done at the end of step t
+  Fetched f = {};
+  auto fetch = [&]() {
+    const int4 r = s.rec[clamp_index(pc, C)];
+    const unsigned y = static_cast<unsigned>(r.y);
+    f.imm = r.x;
+    f.z = r.z;
+    f.dst = (y & 255u) * 32;  // register dst of this lane, if REC_WREG
+    f.cost = static_cast<unsigned>(r.w) >> REC_COST;
+    // every operand read at once, with no branch: an index out of range
+    // (REG_NONE, PRED_NONE) reads a word in range whose value is replaced
+    const unsigned i1 = (y >> 8) & 255u, i2 = (y >> 16) & 255u, i3 = y >> 24;
+    const int gpred = f.field(REC_GPRED, 3), sel = f.field(REC_SEL, 4);
+    const int top = min(max(sp - 1, 0), D - 1);
+    const int v1 = my_regs[min(i1, r_last) * 32];
+    const int v2 = my_regs[min(i2, r_last) * 32];
+    const int v3 = my_regs[min(i3, r_last) * 32];
+    const int vp = my_pred[(gpred & 3) * 32];
+    const int vs = s.sreg[sel];
+    f.top_addr = w_saddr[top];  // the .S pop's entry
+    f.top_type = w_stype[top];
+    f.top_mask = static_cast<unsigned>(w_smask[top]);
+    const int flags = f.field(REC_FLAGS, 4);
+    const int s1 = (flags & isa::FLAG_SRC1_IMM) ? f.imm
+                   : i1 == REG_NONE             ? INT_MIN
+                                                : v1;
+    f.s2 = (flags & isa::FLAG_SRC2_IMM) ? f.imm
+           : i2 == REG_NONE             ? INT_MIN
+                                        : v2;
+    const int s3 = NUM_READ_OPERANDS < 3 ? 0 : i3 == REG_NONE ? INT_MIN : v3;
+    const int nib = gpred == PRED_NONE ? 0 : vp;
+    const bool cond = (r.w >> clamp_index(nib, 16)) & 1;
+    const unsigned cond_m = __ballot_sync(FULL, cond);
+    f.guard_m = (flags & isa::FLAG_GUARD) ? cond_m : FULL;
+    const int s2r = sel == 0 ? tidx : sel == 1 ? tidy : sel == 8 ? tid : vs;
+    alu_datapath<ENABLE_MUL, NUM_READ_OPERANDS>(f.op(), s1, f.s2, s3, cond,
+                                                s2r, true, f.res, f.nib);
+    const int addr = static_cast<int>(static_cast<unsigned>(s1) +
+                                      static_cast<unsigned>(f.imm));
+    f.gaddr = min(max(addr, 0), G - 1);
+    f.saddr = min(max(addr, 0), S - 1);
+  };
+  auto publish = [&](int parity) {  // every lane stores the same slot
+    const int live = wstate != FINISHED;
+    s.slot[parity * W + w] = make_int2(
+        (live ? V_LIVE : 0) | (wstate == READY ? V_READY : 0) |
+            (live && f.bit(REC_STORE) ? V_STORE : 0),
+        static_cast<int>(cycles));
+  };
+  fetch();
+  publish(0);
+  __syncthreads();
+
+  for (int parity = 0;; parity ^= 1) {
+    // ---- after the step boundary: the memory read ports and the vote ----
+    const int lds = s.smem[f.saddr];  // in range: read on every step
+    int ld = 0;
+    if (f.op() == isa::LDG && wstate != FINISHED) ld = gmem[f.gaddr];
+    const int2 sl = lane < W ? s.slot[parity * W + lane] : make_int2(0, 0);
+    const unsigned votes = __reduce_or_sync(FULL, sl.x);
+    total = static_cast<int>(
+        __reduce_add_sync(FULL, static_cast<unsigned>(sl.y)));
     // loop condition of run_block_body: some warp left, under max_cycles
-    if (!__syncthreads_or(wstate != FINISHED) ||
-        s.ctr[C_CYCLES] >= max_cycles)
-      break;
-    // ---- read phase: barrier release (fetch_decode) ---------------------
-    const bool any_ready = __syncthreads_or(wstate == READY);
-    if (!any_ready && wstate == WAIT) wstate = READY;
+    if (!(votes & V_LIVE) || total >= max_cycles) break;
+    // barrier release (fetch_decode): no warp READY wakes every waiter
+    if (!(votes & V_READY) && wstate == WAIT) wstate = READY;
     const bool issued = wstate == READY;
 
-    // ---- fetch / decode ---------------------------------------------------
-    const int* ins = s.code + clamp_index(pc, C) * isa::NUM_FIELDS;
-    const int op = ins[isa::F_OP], dst = ins[isa::F_DST];
-    const int src1 = ins[isa::F_SRC1], src2 = ins[isa::F_SRC2];
-    const int src3 = ins[isa::F_SRC3], imm = ins[isa::F_IMM];
-    const int flags = ins[isa::F_FLAGS], gpred = ins[isa::F_GPRED];
-    const int gcond = ins[isa::F_GCOND], pdst = ins[isa::F_PDST];
-    const bool guarded = flags & isa::FLAG_GUARD;
-
-    // .S reconvergence pop
-    const int top = min(max(sp - 1, 0), D - 1);
-    const int top_addr = w_saddr[top], top_type = w_stype[top];
-    const unsigned top_mask = static_cast<unsigned>(w_smask[top]);
-    const bool do_pop = issued && (flags & isa::FLAG_SYNC) && sp > 0;
-    const bool pop_taken = do_pop && top_type == isa::STACK_TAKEN;
-    const unsigned act = do_pop ? top_mask : active;
-    const int dsp = sp - (do_pop ? 1 : 0);
+    // the .S reconvergence pop, and the lane masks
+    const bool control = f.bit(REC_CONTROL);
+    const bool do_pop = control && issued &&
+                        (f.field(REC_FLAGS, 4) & isa::FLAG_SYNC) && sp > 0;
+    const bool pop_taken = do_pop && f.top_type == isa::STACK_TAKEN;
     const bool exec_this = issued && !pop_taken;
+    const unsigned part_m =
+        exec_this ? (do_pop ? f.top_mask & alive : part0) : 0u;
+    const unsigned exec_m = part_m & f.guard_m;  // BRA: the taken lanes
+    const bool ex = (exec_m >> lane) & 1u;
 
-    // ---- read operands ------------------------------------------------------
-    const int gp = wrap_index(gpred, 4);
-    const int nib = (gp >= 0 && gp < 4) ? my_pred[gp * 32] : INT_MIN;
-    const bool cond =
-        s.lut[clamp_index(gcond, 16) * 16 + clamp_index(nib, 16)] != 0;
-    const bool part = ((act & alive) >> lane) & 1u && exec_this;
-    const bool ex = part && (!guarded || cond);
-    auto gather = [&](int r) {
-      r = wrap_index(r, R);
-      return (r >= 0 && r < R) ? my_regs[r * 32] : INT_MIN;
-    };
-    const int s1 = (flags & isa::FLAG_SRC1_IMM) ? imm : gather(src1);
-    const int s2 = (flags & isa::FLAG_SRC2_IMM) ? imm : gather(src2);
-    const int s3 = NUM_READ_OPERANDS >= 3 ? gather(src3) : 0;
-    int s2r = 0;
-    if (op == isa::S2R) {
-      switch (min(max(imm, 0), isa::NUM_SPECIAL_REGS - 1)) {
-        case 0: s2r = tid % bdx; break;
-        case 1: s2r = tid / bdx; break;
-        case 2: s2r = bx; break;
-        case 3: s2r = by; break;
-        case 4: s2r = bdx; break;
-        case 5: s2r = bdy; break;
-        case 6: s2r = gx; break;
-        case 7: s2r = gy; break;
-        case 8: s2r = tid; break;
-        case 9: s2r = static_cast<int>(static_cast<unsigned>(by) * gx + bx);
-          break;
-        default: s2r = static_cast<int>(static_cast<unsigned>(bdx) * bdy);
-      }
+    // loads of this step before any store of it
+    if (votes & V_STORE) {
+      __syncthreads();
+      ++store_steps;
     }
-    const int addr = static_cast<int>(static_cast<unsigned>(s1) +
-                                      static_cast<unsigned>(imm));
-    const int gaddr = min(max(addr, 0), G - 1);
-    const int saddr = min(max(addr, 0), S - 1);
-
-    // ---- execute (the memory read ports merge by opcode) ------------------
-    int res, nib_new;
-    alu_datapath<ENABLE_MUL, NUM_READ_OPERANDS>(op, s1, s2, s3, cond, s2r, ex,
-                                                res, nib_new);
-    if (op == isa::LDG)
-      res = gmem[gaddr];
-    else if (op == isa::LDS)
-      res = s.smem[saddr];
-
-    const bool taken = guarded ? (part && cond) : part;
-    const unsigned taken_m = __ballot_sync(FULL, taken);
-    const unsigned ntk_m = __ballot_sync(FULL, part && !taken);
-    const unsigned part_m = __ballot_sync(FULL, part);
-    const unsigned exec_m = __ballot_sync(FULL, ex);
-    __syncthreads();
 
     // ---- write phase: register / predicate writeback, stores ------------
-    if (ex && in_mask(isa::WRITES_REG_MASK, op)) {
-      const int d = wrap_index(dst, R);
-      if (d >= 0 && d < R) my_regs[d * 32] = res;
+    const int op = f.op();
+    if (ex && f.bit(REC_WREG))
+      my_regs[f.dst] = !f.bit(REC_LOAD) ? f.res : op == isa::LDS ? lds : ld;
+    if (ex && f.bit(REC_WPRED)) my_pred[f.field(REC_PDST, 3) * 32] = f.nib;
+    if (ex && f.bit(REC_STORE)) {
+      if (op == isa::STG) {
+        gmem[f.gaddr] = f.s2;
+        gw[f.gaddr] = 1;
+      } else {
+        s.smem[f.saddr] = f.s2;
+      }
     }
-    if (ex && op == isa::ISETP) {
-      const int d = wrap_index(pdst, 4);
-      if (d >= 0 && d < 4) my_pred[d * 32] = nib_new;
+
+    // ---- counters, per warp --------------------------------------------
+    if (issued) cycles += exec_this ? f.cost : 1;  // a TAKEN pop: 1 cycle
+    if (exec_this && lane == f.field(REC_CTR, 5)) {
+      ++issues;
+      lanes += __popc(exec_m);
     }
-    if (ex && op == isa::STG) {
-      gmem[gaddr] = s2;
-      gw[gaddr] = 1;
-    }
-    if (ex && op == isa::STS) s.smem[saddr] = s2;
 
     // ---- control: warp stack, EXIT, BAR, next PC ---------------------------
-    const bool is_bra = op == isa::BRA && exec_this;
-    const bool is_ssy = op == isa::SSY && exec_this;
-    const bool diverge = is_bra && taken_m && ntk_m;
-    const bool uni_taken = is_bra && taken_m && !ntk_m;
-    const bool do_push = diverge || is_ssy;
-    const int slot = min(max(dsp, 0), D - 1);
-    if (do_push && lane == 0) {
-      w_saddr[slot] = imm;
-      w_stype[slot] = is_ssy ? isa::STACK_RECONV : isa::STACK_TAKEN;
-      w_smask[slot] = static_cast<int>(is_ssy ? part_m : taken_m);
-    }
-    const bool overflow_now = do_push && dsp >= D;
-    int sp_new = dsp + (do_push ? 1 : 0);
-    const bool is_exit = op == isa::EXIT && exec_this;
-    const unsigned alive_new = is_exit ? (alive & ~exec_m) : alive;
-    const bool warp_done = is_exit && alive_new == 0;
-    const bool exit_resume = is_exit && !warp_done && sp_new > 0;
-    const int etop = min(max(sp_new - 1, 0), D - 1);
-    __syncwarp();
-    const int e_addr = w_saddr[etop], e_type = w_stype[etop];
-    const unsigned e_mask = static_cast<unsigned>(w_smask[etop]);
-    sp_new -= exit_resume ? 1 : 0;
-    const unsigned active_new = exit_resume ? (e_mask & alive_new)
-                                : diverge   ? ntk_m
-                                : is_exit   ? alive_new
-                                            : act;
-    const bool resume_jump = exit_resume && e_type == isa::STACK_TAKEN;
-    const int pc_next =
-        pop_taken ? top_addr
-        : uni_taken ? imm
-        : resume_jump ? e_addr
-                      : static_cast<int>(static_cast<unsigned>(pc) + 1u);
-    const bool is_bar = op == isa::BAR && exec_this;
-
-    // ---- counters --------------------------------------------------------------
-    if (lane == 0) {
-      int cost = 0;
-      if (issued)
-        cost = exec_this ? rows + (in_mask(isa::IS_GMEM_MASK, op) ? lat_g : 0) +
-                               (in_mask(isa::IS_SMEM_MASK, op) ? lat_s : 0)
-                         : 1;  // a TAKEN pop costs one cycle
-      const int op_c = wrap_index(exec_this ? op : isa::NOP, isa::NUM_OPCODES);
-      if (op_c >= 0 && op_c < isa::NUM_OPCODES) {
-        if (exec_this) atomicAdd(&s.ctr[op_c], 1);
-        if (exec_m) atomicAdd(&s.ctr[isa::NUM_OPCODES + op_c], __popc(exec_m));
+    if (!control) {
+      if (issued) pc = static_cast<int>(static_cast<unsigned>(pc) + 1u);
+    } else {
+      const unsigned act = do_pop ? f.top_mask : active;
+      const int dsp = sp - (do_pop ? 1 : 0);
+      const unsigned ntk_m = part_m & ~exec_m;
+      const bool is_bra = op == isa::BRA && exec_this;
+      const bool is_ssy = op == isa::SSY && exec_this;
+      const bool diverge = is_bra && exec_m && ntk_m;
+      const bool uni_taken = is_bra && exec_m && !ntk_m;
+      const bool do_push = diverge || is_ssy;
+      if (do_push) {
+        const int slot = min(max(dsp, 0), D - 1);
+        if (lane == 0) {
+          w_saddr[slot] = f.imm;
+          w_stype[slot] = is_ssy ? isa::STACK_RECONV : isa::STACK_TAKEN;
+          w_smask[slot] = static_cast<int>(is_ssy ? part_m : exec_m);
+        }
+        __syncwarp();
       }
-      if (cost) atomicAdd(&s.ctr[C_CYCLES], cost);
-      const int sops = int(do_push) + int(do_pop) + int(exit_resume);
-      if (sops) atomicAdd(&s.ctr[C_STACK_OPS], sops);
-      atomicMax(&s.ctr[C_MAX_SP], sp_new);
-      if (overflow_now) atomicOr(&s.ctr[C_OVERFLOW], 1);
+      int sp_new = dsp + (do_push ? 1 : 0);
+      const bool is_exit = op == isa::EXIT && exec_this;
+      const unsigned alive_new = is_exit ? (alive & ~exec_m) : alive;
+      const bool warp_done = is_exit && alive_new == 0;
+      const bool exit_resume = is_exit && !warp_done && sp_new > 0;
+      int pc_next = static_cast<int>(static_cast<unsigned>(pc) + 1u);
+      unsigned active_new = diverge ? ntk_m : (is_exit ? alive_new : act);
+      if (exit_resume) {
+        const int etop = min(max(sp_new - 1, 0), D - 1);
+        active_new = static_cast<unsigned>(w_smask[etop]) & alive_new;
+        if (w_stype[etop] == isa::STACK_TAKEN) pc_next = w_saddr[etop];
+        --sp_new;
+      }
+      if (pop_taken)
+        pc_next = f.top_addr;
+      else if (uni_taken)
+        pc_next = f.imm;
+      stack_ops += int(do_push) + int(do_pop) + int(exit_resume);
+      max_sp = max(max_sp, sp_new);
+      overflow |= do_push && dsp >= D;
+      if (issued) pc = pc_next;
+      wstate = warp_done ? FINISHED
+                         : (op == isa::BAR && exec_this ? WAIT : wstate);
+      alive = alive_new;
+      active = active_new;
+      part0 = active & alive;
+      sp = sp_new;
     }
-    if (issued) pc = pc_next;
-    wstate = warp_done ? FINISHED : (is_bar ? WAIT : wstate);
-    alive = alive_new;
-    active = active_new;
-    sp = sp_new;
     ++steps;
+
+    fetch();
+    publish(parity ^ 1);
+    __syncthreads();
   }
 
-  // the loop left through a __syncthreads_or: every counter update is in
-  if (tid == 0) s.ctr[C_STEPS] = steps;
+  // ---- the counters, reduced once into the position's row ---------------
+  if (lane < isa::NUM_OPCODES) {
+    if (issues) atomicAdd(&s.ctr[lane], issues);
+    if (lanes) atomicAdd(&s.ctr[isa::NUM_OPCODES + lane], lanes);
+  }
+  if (lane == 0) {
+    atomicAdd(&s.ctr[C_STACK_OPS], stack_ops);
+    atomicMax(&s.ctr[C_MAX_SP], max_sp);
+    if (overflow) atomicOr(&s.ctr[C_OVERFLOW], 1);
+  }
+  if (tid == 0) {
+    s.ctr[C_CYCLES] = total;
+    s.ctr[C_STEPS] = steps;
+    s.ctr[C_STORE_STEPS] = store_steps;
+  }
   __syncthreads();
   int* ctr = ctr_all + static_cast<long>(blockIdx.x) * N_CTR;
   for (int i = tid; i < N_CTR; i += blockDim.x) ctr[i] = s.ctr[i];
 }
 
-template <bool ENABLE_MUL, int NUM_READ_OPERANDS>
-int launch(const int* codes, const int* lut, const int* geom, int* gmem,
-           int* gw, int* ctr, int P, int W, int C, int G, int R, int D, int S,
-           int rows, int lat_g, int lat_s, int max_cycles,
-           cudaStream_t stream) {
-  auto kernel = fused_sm_run_kernel<ENABLE_MUL, NUM_READ_OPERANDS>;
+template <bool ENABLE_MUL, int NUM_READ_OPERANDS, int MAX_THREADS>
+int launch_sized(const int4* records, const int* geom, int* gmem, int* gw,
+                 int* ctr, int P, int W, int C, int G, int R, int D, int S,
+                 int max_cycles, cudaStream_t stream) {
+  auto kernel =
+      fused_sm_run_kernel<ENABLE_MUL, NUM_READ_OPERANDS, MAX_THREADS>;
   const size_t bytes = smem_words(W, C, R, D, S) * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<P, W * 32, bytes, stream>>>(codes, lut, geom, gmem, gw, ctr, C, G,
-                                       R, D, S, rows, lat_g, lat_s,
-                                       max_cycles);
+  kernel<<<P, W * 32, bytes, stream>>>(records, geom, gmem, gw, ctr, C, G, R,
+                                       D, S, max_cycles);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ENABLE_MUL, int NUM_READ_OPERANDS>
+int launch(const int4* records, const int* geom, int* gmem, int* gw,
+           int* ctr, int P, int W, int C, int G, int R, int D, int S,
+           int max_cycles, cudaStream_t stream) {
+  if (W <= 8)
+    return launch_sized<ENABLE_MUL, NUM_READ_OPERANDS, 256>(
+        records, geom, gmem, gw, ctr, P, W, C, G, R, D, S, max_cycles,
+        stream);
+  return launch_sized<ENABLE_MUL, NUM_READ_OPERANDS, 1024>(
+      records, geom, gmem, gw, ctr, P, W, C, G, R, D, S, max_cycles, stream);
 }
 
 }  // namespace
@@ -326,24 +418,24 @@ extern "C" long fused_sm_smem_bytes(int W, int C, int R, int D, int S) {
   return smem_words(W, C, R, D, S) * static_cast<long>(sizeof(int));
 }
 
-// codes (L, C, 10); lut (256,) 0/1; geom (P, 8); gmem and gw (P, G), run
+// records (L, C, 4) from predecode; geom (P, 8); gmem and gw (P, G), run
 // in place; ctr (P, N_CTR) out.  Returns cudaGetLastError() after launch.
-extern "C" int fused_sm_run_launch(const int* codes, const int* lut,
-                                   const int* geom, int* gmem, int* gw,
-                                   int* ctr, int P, int W, int C, int G,
-                                   int R, int D, int S, int rows, int lat_g,
-                                   int lat_s, int max_cycles, int enable_mul,
+extern "C" int fused_sm_run_launch(const void* records, const int* geom,
+                                   int* gmem, int* gw, int* ctr, int P, int W,
+                                   int C, int G, int R, int D, int S,
+                                   int max_cycles, int enable_mul,
                                    int num_read_operands, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int4* rec = static_cast<const int4*>(records);
   if (enable_mul && num_read_operands >= 3)
-    return launch<true, 3>(codes, lut, geom, gmem, gw, ctr, P, W, C, G, R, D,
-                           S, rows, lat_g, lat_s, max_cycles, s);
+    return launch<true, 3>(rec, geom, gmem, gw, ctr, P, W, C, G, R, D, S,
+                           max_cycles, st);
   if (enable_mul)
-    return launch<true, 2>(codes, lut, geom, gmem, gw, ctr, P, W, C, G, R, D,
-                           S, rows, lat_g, lat_s, max_cycles, s);
+    return launch<true, 2>(rec, geom, gmem, gw, ctr, P, W, C, G, R, D, S,
+                           max_cycles, st);
   if (num_read_operands >= 3)
-    return launch<false, 3>(codes, lut, geom, gmem, gw, ctr, P, W, C, G, R, D,
-                            S, rows, lat_g, lat_s, max_cycles, s);
-  return launch<false, 2>(codes, lut, geom, gmem, gw, ctr, P, W, C, G, R, D,
-                          S, rows, lat_g, lat_s, max_cycles, s);
+    return launch<false, 3>(rec, geom, gmem, gw, ctr, P, W, C, G, R, D, S,
+                            max_cycles, st);
+  return launch<false, 2>(rec, geom, gmem, gw, ctr, P, W, C, G, R, D, S,
+                          max_cycles, st);
 }

@@ -124,7 +124,7 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.simt_alu_launch.argtypes = [p] * 9 + [i, i, i, i, p]
         lib.simt_alu_launch.restype = i
-        lib.fused_sm_run_launch.argtypes = [p] * 6 + [i] * 13 + [p]
+        lib.fused_sm_run_launch.argtypes = [p] * 5 + [i] * 10 + [p]
         lib.fused_sm_run_launch.restype = i
         lib.fused_sm_smem_bytes.argtypes = [i] * 5
         lib.fused_sm_smem_bytes.restype = ctypes.c_long

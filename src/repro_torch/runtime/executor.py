@@ -11,6 +11,10 @@ of its blocks' cycles)``.  The schedule is executed:
 * each dispatch group covers ``spd × n_sm`` positions, ``spd`` halving
   for a ragged tail exactly as in the JAX package; on the card the whole
   group is one launch of the fused kernel, one CTA per position;
+* the schedule (geometry, launch and SM of each position, the predecoded
+  programs) goes to the device once, so the group loop
+  (:func:`run_groups`) makes no synchronizing call and the host queues
+  the next group while the card runs this one;
 * every position runs on a private copy of its launch's gmem as it stood
   when the group started;
 * write sets merge into each launch's global memory in position order
@@ -28,6 +32,7 @@ Sharding across devices, ``TransferLog`` and the tracing spans wait.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -36,7 +41,7 @@ import torch
 from ..core import isa
 from ..core.pipeline import MachineConfig
 from ..core.pipeline.fused import (C_CYCLES, C_STEPS, counters_from_rows,
-                                   fused_sm_run, staged_run)
+                                   fused_sm_run, predecode, staged_run)
 from ..core.pipeline.state import as_int32, resolve_device
 from . import registry as reg
 from .registry import Module, ModuleRegistry
@@ -174,6 +179,68 @@ class DeviceGrid:
         return out
 
 
+@functools.lru_cache(maxsize=64)
+def _records(codes: bytes, shape: Tuple[int, ...],
+             cfg: MachineConfig) -> torch.Tensor:
+    """:func:`predecode` of the programs ``codes`` (int32 bytes of
+    ``shape``) on the host, once per programs and configuration."""
+    x = np.frombuffer(codes, np.int32).reshape(shape)
+    return predecode(torch.from_numpy(x.copy()), cfg)
+
+
+class Schedule(NamedTuple):
+    """The dispatch schedule of one :func:`execute`, uploaded once: one
+    geometry row per position (:data:`GEOM_FIELDS` of the fused kernel),
+    on the host and on the device, each position's launch and SM, and the
+    programs' predecoded records (the fused backend on the card only;
+    elsewhere each group runs the plain staged pipeline)."""
+    geom: np.ndarray                  # (n_blocks, 8) int32
+    geom_dev: torch.Tensor            # the same rows on the device
+    launch_ids: torch.Tensor          # (n_blocks,) int32
+    sm_ids: torch.Tensor              # (n_blocks,) int32
+    records: Optional[torch.Tensor]   # (L, C, 4) int32, or None
+
+
+def run_groups(cfg: MachineConfig, n_warps: int, n_sm: int, chunk: int,
+               codes: torch.Tensor, sched: Schedule, gmems: torch.Tensor):
+    """The dispatch-group loop: each group's gmem snapshots, one run of its
+    positions, the position-order merge into ``gmems`` (in place) and the
+    per-SM cycle sums.  Returns (counter rows (n_blocks, N_CTR), per-SM
+    cycles (n_sm,) int64), both on the device.
+
+    With the fused backend on the card it makes no synchronizing call, so
+    the host queues group g+1 while group g runs: it reads only host
+    geometry and device tensors sliced from ``sched``."""
+    n_blocks = len(sched.geom)
+    spd_max = max(1, chunk // n_sm)
+    sm_cyc = torch.zeros(n_sm, dtype=torch.int64, device=gmems.device)
+    ctr_groups = []
+    lo = 0
+    while lo < n_blocks:
+        # position p -> SM p % n_sm, super-step p // n_sm; a group spans
+        # spd super-steps, spd halving while the rest still fits
+        spd = spd_max
+        while spd // 2 >= -(-(n_blocks - lo) // n_sm):
+            spd //= 2
+        take = min(spd * n_sm, n_blocks - lo)
+        geom = sched.geom[lo:lo + take]
+        snap = gmems.index_select(0, sched.launch_ids[lo:lo + take])
+        if sched.records is None:
+            mem, wrt, ctr = staged_run(cfg, n_warps, codes, geom, snap)
+        else:
+            mem, wrt, ctr = fused_sm_run(
+                cfg, n_warps, codes, geom, snap, records=sched.records,
+                geom_dev=sched.geom_dev[lo:lo + take])
+        # position-order merge: later positions overwrite earlier ones
+        for p, li in enumerate(geom[:, 0].tolist()):
+            gmems[li] = torch.where(wrt[p], mem[p], gmems[li])
+        cost = ctr[:, C_CYCLES].to(torch.int64) + BLOCK_SCHED_OVERHEAD
+        sm_cyc.index_add_(0, sched.sm_ids[lo:lo + take], cost)
+        ctr_groups.append(ctr)
+        lo += take
+    return torch.cat(ctr_groups), sm_cyc
+
+
 def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
             cfg: MachineConfig = MachineConfig(), chunk: int = 8,
             device="cuda") -> DeviceGrid:
@@ -216,35 +283,25 @@ def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
         gmems[i, :orig_lens[i]] = as_int32(launch.gmem, dev)
 
     n_warps = max(warps_for(l.block_dim) for l in launches)
-    geom_all = np.concatenate(pos_l)
-    n_blocks = len(geom_all)
-
-    # schedule: position p -> SM p % n_sm, super-step p // n_sm; a group
-    # spans spd super-steps, spd halving while the rest still fits
-    sm_ids_all = torch.as_tensor(np.arange(n_blocks) % n_sm, device=dev)
-    spd_max = max(1, chunk // n_sm)
-    run = fused_sm_run if cfg.execute_backend == "cuda_fused" else staged_run
+    geom = np.concatenate(pos_l)
+    n_blocks = len(geom)
+    # everything the group loop reads goes to the device once, here: the
+    # programs, their records (predecoded on the host, cached), and one
+    # buffer of the geometry rows, launch ids and SM ids of the positions
     codes_d = torch.as_tensor(codes, device=dev)
-    sm_cyc = torch.zeros(n_sm, dtype=torch.int64, device=dev)
-    ctr_groups = []
-    lo = 0
-    while lo < n_blocks:
-        spd = spd_max
-        while spd // 2 >= -(-(n_blocks - lo) // n_sm):
-            spd //= 2
-        take = min(spd * n_sm, n_blocks - lo)
-        geom = geom_all[lo:lo + take]
-        launch_ids = torch.as_tensor(geom[:, 0], device=dev).long()
-        mem, wrt, ctr = run(cfg, n_warps, codes_d, geom, gmems[launch_ids])
-        # position-order merge: later positions overwrite earlier ones
-        for p, li in enumerate(geom[:, 0].tolist()):
-            gmems[li] = torch.where(wrt[p], mem[p], gmems[li])
-        cost = ctr[:, C_CYCLES].to(torch.int64) + BLOCK_SCHED_OVERHEAD
-        sm_cyc.index_add_(0, sm_ids_all[lo:lo + take], cost)
-        ctr_groups.append(ctr)
-        lo += take
-
-    return DeviceGrid(gmems=gmems, ctr=torch.cat(ctr_groups), sm_cyc=sm_cyc,
+    buf = torch.as_tensor(np.concatenate(
+        [geom.ravel(), geom[:, 0], np.arange(n_blocks) % n_sm]
+    ).astype(np.int32), device=dev)
+    sched = Schedule(
+        geom=geom, geom_dev=buf[:8 * n_blocks].view(n_blocks, 8),
+        launch_ids=buf[8 * n_blocks:9 * n_blocks],
+        sm_ids=buf[9 * n_blocks:],
+        records=(_records(codes.tobytes(), codes.shape, cfg).to(dev)
+                 if cfg.execute_backend == "cuda_fused" and dev.type == "cuda"
+                 else None))
+    ctr, sm_cyc = run_groups(cfg, n_warps, n_sm, chunk, codes_d, sched,
+                             gmems)
+    return DeviceGrid(gmems=gmems, ctr=ctr, sm_cyc=sm_cyc,
                       n_sm=n_sm, n_steps=-(-n_blocks // n_sm),
                       launch_offsets=offsets, launch_blocks=nblocks,
                       orig_lens=orig_lens)

@@ -166,5 +166,6 @@ def test_fused_kernel_layout_matches_wrapper():
         "C_MAX_SP": fused.C_MAX_SP - fused.C_CYCLES,
         "C_OVERFLOW": fused.C_OVERFLOW - fused.C_CYCLES,
         "C_STEPS": fused.C_STEPS - fused.C_CYCLES,
+        "C_STORE_STEPS": fused.C_STORE_STEPS - fused.C_CYCLES,
         "N_CTR": fused.N_CTR - fused.C_CYCLES}
     assert "C_CYCLES = 2 * isa::NUM_OPCODES" in text

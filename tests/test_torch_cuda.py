@@ -11,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from dataclasses import replace
+
 from repro_torch.core import isa, machine, scheduler
 from repro_torch.core.machine import MachineConfig
+from repro_torch.core.pipeline.fused import C_STEPS, fused_sm_run, staged_run
 from repro_torch.core.programs import ALL
+from repro_torch.runtime import executor
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -22,7 +26,9 @@ from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
                                      mha_ref, simt_alu_ref)
 from repro_torch.kernels.simt_alu import simt_alu
-from test_torch_parity import out_of_range_program
+from test_torch_parity import (out_of_range_program, random_branchy,
+                               random_straightline, same_step_gmem,
+                               same_step_program)
 
 pytestmark = pytest.mark.cuda
 
@@ -81,6 +87,99 @@ def test_out_of_range_fields_on_card(card):
     assert _build.LAUNCHES["fused_sm_run"] == 1
     for a, b in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
         assert torch.equal(a.cpu(), b)
+
+
+def block_on_card_matches_cpu(card, code, bd, gmem):
+    """One block through the fused kernel and through the plain path on
+    the CPU: gmem, written mask and every counter equal."""
+    want = machine.run_block(code, bd, (0, 0), (1, 1), gmem, device="cpu")
+    _build.LAUNCHES.clear()
+    got = machine.run_block(code, bd, (0, 0), (1, 1), gmem, device=card)
+    assert _build.LAUNCHES["fused_sm_run"] == 1
+    for a, b in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("bd", [64, 256, 1024])
+def test_same_step_load_sees_the_value_before_the_step_on_card(card, bd):
+    """An odd warp's LDS (LDG) in the step of its even neighbour's STS
+    (STG) to the same word reads the word as it was before the step: the
+    case a wrongly skipped read/write barrier breaks."""
+    block_on_card_matches_cpu(card, same_step_program(bd), bd,
+                              same_step_gmem(bd))
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("kind", ["straight", "branchy"])
+def test_random_programs_on_card(card, kind, seed):
+    """The seeded random programs of tests/test_torch_parity.py."""
+    if kind == "straight":
+        rng = np.random.default_rng(seed)
+        code, bd = random_straightline(rng), 40
+        gmem = rng.integers(-1000, 1000, 40 * 8, dtype=np.int32)
+    else:
+        code, bd = random_branchy(np.random.default_rng(seed + 100)), 64
+        gmem = np.zeros(64, np.int32)
+    block_on_card_matches_cpu(card, code, bd, gmem)
+
+
+@pytest.mark.parametrize("bd", [1024, 1000])
+def test_widest_and_partial_blocks_on_card(card, bd):
+    """32 warps (1024 threads), and a block whose last warp has 8 threads."""
+    rng = np.random.default_rng(bd)
+    block_on_card_matches_cpu(card, random_straightline(rng), bd,
+                              rng.integers(-1000, 1000, bd * 8,
+                                           dtype=np.int32))
+
+
+@pytest.mark.parametrize("budget", [1, 777, 3000])
+def test_cycle_budget_stops_blocks_mid_program_on_card(card, budget):
+    """max_cycles stops every block of a matmul group mid-program; the
+    kernel's rows, the step it stopped at included, equal the plain
+    path's."""
+    mod = ALL["matmul"]
+    (gx, gy), (bdx, bdy) = mod.launch(32)
+    geom = np.array([[0, bdx * bdy, bdx, bdy, p % gx, p // gx, gx, gy]
+                     for p in range(gx * gy)], np.int32)
+    code = torch.as_tensor(mod.build(32))[None].contiguous()
+    g0 = torch.as_tensor(mod.make_gmem(np.random.default_rng(9), 32))
+    gmem = g0[None].repeat(len(geom), 1)
+    cfg = MachineConfig(max_cycles=budget)
+    W = bdx * bdy // 32
+    want = staged_run(replace(cfg, execute_backend="torch"), W, code, geom,
+                      gmem.clone())
+    full = staged_run(MachineConfig(execute_backend="torch"), W, code, geom,
+                      gmem.clone())
+    assert (want[2][:, C_STEPS] < full[2][:, C_STEPS]).all()
+    got = fused_sm_run(cfg, W, code.to(card), geom, gmem.to(card))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_group_loop_makes_no_synchronizing_call(card, monkeypatch):
+    """execute's dispatch-group loop under sync debug mode "error": any
+    call that waits for the card raises.  Results equal the CPU's."""
+    mod = ALL["transpose"]
+    code, (grid, bd) = mod.build(64), mod.launch(64)
+    g0 = mod.make_gmem(np.random.default_rng(0), 64)
+    real = executor.run_groups
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(executor, "run_groups", strict)
+    want = scheduler.run_grid(code, grid, bd, g0.copy(), n_sm=2,
+                              device="cpu")
+    _build.LAUNCHES.clear()
+    got = scheduler.run_grid(code, grid, bd, g0.copy(), n_sm=2, device=card)
+    assert _build.LAUNCHES["fused_sm_run"] == 2
+    for f in want._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(got, f)),
+                                      np.asarray(getattr(want, f)), f)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):

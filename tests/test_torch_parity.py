@@ -137,6 +137,54 @@ def out_of_range_program():
     return np.concatenate([np.stack(rows), isa.exit_pad_rows(64 - len(rows))])
 
 
+def same_step_program(bd):
+    """Odd warps run one instruction behind even warps, so that an odd
+    warp's LDS (then LDG) of a word falls in the step in which its even
+    neighbour STS (STG) to that word.  Warps 2k and 2k+1 share the words
+    32k .. 32k+31 of shared and global memory; thread t stores t + 1000
+    there and what its LDS and LDG saw at ``bd + t`` and ``2 bd + t``."""
+    p = asm.Program("same-step")
+    p.s2r("r0", isa.SR_TID)
+    p.shr("r1", "r0", 5)                  # warp
+    p.and_("r1", "r1", 1)                 # odd warp?
+    p.shr("r2", "r0", 6)
+    p.shl("r2", "r2", 5)
+    p.and_("r3", "r0", 31)
+    p.iadd("r2", "r2", "r3")              # the pair's word for this lane
+    p.iadd("r4", "r0", 1000)
+    p.isetp("p0", "r1", 0)
+    p.guard("p0", "EQ").bra("go")         # even warps skip the NOP
+    p.nop()
+    p.label("go")
+    p.lds("r5", "r2")                     # odd: the step of even's STS
+    p.sts("r2", "r4")
+    p.ldg("r6", "r2")                     # odd: the step of even's STG
+    p.stg("r2", "r4")
+    p.stg("r0", "r5", bd)
+    p.stg("r0", "r6", 2 * bd)
+    p.exit()
+    return p.finish(pad_to=32)
+
+
+def same_step_gmem(bd):
+    """Global memory for :func:`same_step_program`: word i holds -(i+1)."""
+    return -np.arange(1, 3 * bd + 1, dtype=np.int32)
+
+
+def test_same_step_load_sees_the_value_before_the_step():
+    bd = 256
+    code, g0 = same_step_program(bd), same_step_gmem(bd)
+    want = jax_block(code, bd, (1, 1), g0)
+    got = port_block(code, bd, (1, 1), g0)
+    assert_same(want, got, "same-step load/store")
+    tid = np.arange(bd)
+    word = (tid >> 6) * 32 + (tid & 31)
+    np.testing.assert_array_equal(got[0][bd:2 * bd], 0)          # LDS
+    np.testing.assert_array_equal(got[0][2 * bd:], g0[word])      # LDG
+    # the odd warp stores last
+    np.testing.assert_array_equal(got[0][word], (tid | 32) + 1000)
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_random_straightline(seed):
     rng = np.random.default_rng(seed)
