@@ -19,21 +19,28 @@ Phases, each printed as it ends:
    power limit;
 2. build: seconds, and the registers and spills ptxas reports;
 3. ``simt_alu`` against ``simt_alu_ref``, bit for bit: every opcode (and
-   two out-of-range ones) at W in {1, 8, 64, 4096} warps, for
-   ``enable_mul`` x ``num_read_operands`` in {T, F} x {2, 3}, on random
-   int32 operands plus edge values;
+   two out-of-range ones) at W in {1, 8, 64, 4096} warps and at the
+   staged pipeline's batched (P, W, 32) shapes, for ``enable_mul`` x
+   ``num_read_operands`` in {T, F} x {2, 3}, on random int32 operands
+   plus edge values, also for rows of 30 lanes and for operands one word
+   off a 16-byte boundary;
 4. the fused kernel against the plain staged path: ``run_grid`` with
    ``"cuda_fused"`` on the card against ``"torch"`` on CPU tensors, the
    five programs at n=32 under three configurations, every counter;
 5. the staged ``"cuda"`` path on the card (``simt_alu`` inside the
-   pipeline), against the CPU;
+   pipeline, one launch a step for a whole dispatch group), against the
+   CPU: matmul n=32 with exactly 298 launches, and the five programs at
+   n=32 in one ``execute`` over two SMs;
 6. the main path at n=256 on the card, at n_sm 1 and 2, plus one
    multi-launch ``execute`` of all five, against the oracles and the
    analytical replay; every program but matmul also against the plain
    path on the host CPU, every counter; matmul must cost 83968 cycles a
    block;
 7. timings: each kernel's time at the shape its path gives it, its plain
-   version's time on the same inputs (``simt_alu``'s on the card; the
+   version's time on the same inputs (``simt_alu``'s on the card, at five
+   shapes up to 65536 x 32, which must reach half its memory bound both
+   back to back and with the L2 emptied of its operands before each call;
+   the
    fused kernel's on the host CPU, plus the plain path on the card over a
    cycle budget), and its bound; the fused kernel on one dispatch group
    of each of the five programs at n=256, in µs per simulated step, with
@@ -122,7 +129,7 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def event_ms(fn, reps: int) -> float:
     """Mean CUDA-event milliseconds of ``fn()`` over ``reps`` runs after
     one warm-up run."""
     fn()
@@ -147,7 +154,7 @@ def device_ms(fn, reps: int) -> float:
     (``torch.cuda._sleep``), so the device runs them back to back while
     the host is still launching them, and the CUDA-event time over them
     is the device's, not the host's launch rate, which is what
-    ``cuda_ms`` measures for a call shorter than its launch.  Raises if
+    ``event_ms`` measures for a call shorter than its launch.  Raises if
     the host took longer to queue the runs than the spin lasted."""
     fn()
     torch.cuda.synchronize()
@@ -169,9 +176,18 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def l2_cold_ms(fn, reps: int) -> float:
+    """Device milliseconds of one ``fn()`` with the L2 holding none of its
+    operands: a read of 128 MB (over twice the H100's 50 MB L2) queued
+    before each run, less that read's own time."""
+    flush = torch.zeros(2 ** 25, dtype=torch.int32, device="cuda")
+    return device_ms(lambda: (flush.sum(), fn()), reps) - \
+        device_ms(flush.sum, reps)
+
+
 def timed(fn, reps: int):
     """(device ms, CUDA-event ms) of one ``fn()``."""
-    return device_ms(fn, reps), cuda_ms(fn, reps)
+    return device_ms(fn, reps), event_ms(fn, reps)
 
 
 # ------------------------------------------------------------ phase 3
@@ -196,33 +212,63 @@ def alu_inputs(rng, W, opcodes):
 
 def phase_simt_alu(rng):
     from repro_torch.core import isa
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ref import simt_alu_ref
     from repro_torch.kernels.simt_alu import simt_alu
     all_ops = list(range(isa.NUM_OPCODES)) + [-1, isa.NUM_OPCODES]
     n_cases, max_err = 0, 0
+
+    def check(x, tag):
+        nonlocal n_cases, max_err
+        for em in (True, False):
+            for nro in (2, 3):
+                kw = dict(enable_mul=em, num_read_operands=nro)
+                _build.LAUNCHES.clear()
+                got = simt_alu(*x, **kw)
+                want = simt_alu_ref(*x, **kw)
+                torch.cuda.synchronize()
+                if dict(_build.LAUNCHES) != {"simt_alu": 1}:
+                    raise AssertionError(f"simt_alu {tag}: launched "
+                                         f"{dict(_build.LAUNCHES)}")
+                for g, w_ in zip(got, want):
+                    err = (g.long() - w_.long()).abs().max().item()
+                    max_err = max(max_err, err)
+                    if g.shape != x[1].shape or not torch.equal(g, w_):
+                        raise AssertionError(
+                            f"simt_alu != simt_alu_ref at {tag} "
+                            f"enable_mul={em} nro={nro}")
+                n_cases += 1
+
     for W in (1, 8, 64, 4096):
         # small W: one call per opcode; large W: every opcode in one call
         op_sets = [[o] for o in all_ops] if W < len(all_ops) else [all_ops]
         for ops in op_sets:
-            for em in (True, False):
-                for nro in (2, 3):
-                    x = alu_inputs(rng, W, ops)
-                    kw = dict(enable_mul=em, num_read_operands=nro)
-                    got = simt_alu(*x, **kw)
-                    want = simt_alu_ref(*x, **kw)
-                    torch.cuda.synchronize()
-                    for g, w_ in zip(got, want):
-                        err = (g.long() - w_.long()).abs().max().item()
-                        max_err = max(max_err, err)
-                        if not torch.equal(g, w_):
-                            raise AssertionError(
-                                f"simt_alu != simt_alu_ref at W={W} ops={ops}"
-                                f" enable_mul={em} nro={nro}")
-                    n_cases += 1
+            check(alu_inputs(rng, W, ops), f"W={W} ops={ops}")
+    # the staged pipeline's calls: (P, W, 32), a dispatch group's rows;
+    # then rows that are not whole 16-byte vectors, and operands one word
+    # past a 16-byte boundary
+    for shape, offset in (((4, 8, 32), 0), ((8, 8, 32), 0), ((3, 5, 30), 0),
+                          ((4, 8, 32), 1)):
+        P, W, L = shape
+        op, *lanes = alu_inputs(rng, P * W, all_ops)
+        check([op.view(P, W)] + [offset_view(t[:, :L].reshape(shape), offset)
+                                 for t in lanes],
+              f"{shape} offset {offset}")
     log(f"[simt_alu] bit-exact vs simt_alu_ref: {n_cases} cases, "
-        f"W in (1, 8, 64, 4096), opcodes {all_ops[0]}..{all_ops[-1]}, "
-        f"max_abs_err {max_err}")
+        f"W in (1, 8, 64, 4096) and (P, W, L) in (4, 8, 32), (8, 8, 32), "
+        f"(3, 5, 30) and (4, 8, 32) one word off 16 bytes, "
+        f"opcodes {all_ops[0]}..{all_ops[-1]}, max_abs_err {max_err}")
     return max_err
+
+
+def offset_view(x, offset):
+    """``x`` copied into a buffer ``offset`` words in: a contiguous view
+    whose pointer is ``4 * offset`` bytes past the buffer's."""
+    if not offset:
+        return x
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    buf[offset:] = x.reshape(-1)
+    return buf[offset:].view(x.shape)
 
 
 # ------------------------------------------------------------ phase 4/5
@@ -268,16 +314,31 @@ def phase_fused_vs_plain():
         + " ".join(checked))
 
 
+def staged_launches_expected(dg, n_sm):
+    """simt_alu launches of a staged run: one a group step, so the sum
+    over the executor's dispatch groups of each group's longest block."""
+    from repro_torch.runtime.executor import group_bounds
+    steps = dg.block_steps()
+    return sum(int(steps[lo:hi].max())
+               for lo, hi in group_bounds(len(steps), n_sm, 8))
+
+
 def phase_staged_cuda(launches):
+    """The staged ``"cuda"`` backend on the card (``simt_alu`` inside the
+    pipeline, one launch a step for a whole dispatch group) against the
+    plain path on the host CPU: matmul n=32 (one group of 4 blocks of 298
+    steps: 298 launches, where one position at a time made 1192), then
+    the five paper programs at n=32 in one ``execute`` over two SMs."""
     from repro_torch.core import scheduler
     from repro_torch.core.machine import MachineConfig
     from repro_torch.core.programs import ALL
     mod, n = ALL["matmul"], 32
     code, (grid, bd) = mod.build(n), mod.launch(n)
     g0 = mod.make_gmem(np.random.default_rng(2), n)
-    plain = scheduler.run_grid(code, grid, bd, g0.copy(),
-                               MachineConfig(execute_backend="torch"),
-                               device="cpu")
+    plain_dg = scheduler.execute(
+        [scheduler.LaunchSpec(code, grid, bd, g0.copy())],
+        cfg=MachineConfig(execute_backend="torch"), device="cpu")
+    plain = plain_dg.to_results()[0]
     launches.clear()
     t0 = time.perf_counter()
     card = scheduler.run_grid(code, grid, bd, g0.copy(),
@@ -286,11 +347,49 @@ def phase_staged_cuda(launches):
     wall = time.perf_counter() - t0
     counts = dict(launches)
     assert_same(plain, card, "staged cuda matmul n=32")
-    if counts.get("simt_alu", 0) == 0 or counts.get("fused_sm_run", 0):
-        raise AssertionError(f"staged 'cuda' path launched {counts}")
+    want = staged_launches_expected(plain_dg, 1)
+    if want != 298 or counts != {"simt_alu": want}:
+        raise AssertionError(f"staged 'cuda' matmul n=32 launched {counts}, "
+                             f"want {{'simt_alu': 298}} (expected {want})")
     log(f"[staged cuda] matmul n={n}: bit-exact vs CPU, wall "
-        f"{wall * 1e3:.1f} ms, launches {counts}")
-    return counts["simt_alu"]
+        f"{wall * 1e3:.1f} ms, launches {counts} == 298, the group's "
+        f"longest block's steps (4 blocks x 298 one position at a time "
+        f"were 1192)")
+    # the five-program drain through the staged backend, two SMs
+    specs = []
+    for name in sorted(ALL):
+        m = ALL[name]
+        specs.append((m.build(n), *m.launch(n),
+                      m.make_gmem(np.random.default_rng(3), n)))
+    cfg = MachineConfig(execute_backend="cuda")
+    t0 = time.perf_counter()
+    plain_dg = scheduler.execute([scheduler.LaunchSpec(*x) for x in specs],
+                                 n_sm=2, cfg=cfg, device="cpu")
+    plain = plain_dg.to_results()
+    cpu_s = time.perf_counter() - t0
+    launches.clear()
+    t0 = time.perf_counter()
+    dg = scheduler.execute([scheduler.LaunchSpec(*x) for x in specs],
+                           n_sm=2, cfg=cfg, device="cuda")
+    results, rep = dg.to_results(), dg.report()
+    drain_wall = time.perf_counter() - t0
+    drain_counts = dict(launches)
+    for name, a, b, x in zip(sorted(ALL), plain, results, specs):
+        assert_same(a, b, f"staged cuda drain {name}")
+        check_grid(ALL[name], n, x[3], b, f"staged cuda drain {name}")
+    if not np.array_equal(rep.per_sm_cycles, plain_dg.report().per_sm_cycles):
+        raise AssertionError("staged cuda drain: per-SM cycles differ")
+    want = staged_launches_expected(plain_dg, 2)
+    if drain_counts != {"simt_alu": want}:
+        raise AssertionError(f"staged cuda drain launched {drain_counts}, "
+                             f"want {want}")
+    log(f"[staged cuda] drain of 5 launches n={n} n_sm=2: oracles ok, every "
+        f"field bit-exact vs CPU (plain path on the host CPU {cpu_s:.1f} s), "
+        f"per-SM cycles {rep.per_sm_cycles.tolist()}, wall "
+        f"{drain_wall * 1e3:.1f} ms, launches {drain_counts} == the sum of "
+        f"each group's longest block ({int(plain_dg.block_steps().sum())} "
+        f"block steps in all)")
+    return counts["simt_alu"], wall
 
 
 # ------------------------------------------------------------ phase 6
@@ -398,28 +497,64 @@ def phase_main_path(launches):
 
 
 # ------------------------------------------------------------ phase 7
-def time_simt_alu(rng, launches_on_path, max_err):
+#: simt_alu's timing shapes: (label, operand shape).  The staged path's
+#: call in phase 5 is the matmul n=32 group's 4 x 8 warp rows; 65536 rows
+#: (67.4 MB of operands and results) exceed the 50 MB L2, so that reading
+#: is held to the memory bound
+ALU_SHAPES = (("8x32", (8, 32)), ("4x8x32, the staged path", (4, 8, 32)),
+              ("8x8x32, an n=256 group", (8, 8, 32)), ("4096x32", (4096, 32)),
+              ("65536x32", (65536, 32)))
+#: the share of its bound the 65536-row readings (back to back, and with
+#: the L2 emptied of the operands before each call) must reach
+ALU_BOUND_SHARE = 0.5
+
+
+def time_simt_alu(rng, launches_on_path, max_err, staged_wall):
     from repro_torch.kernels.ref import simt_alu_ref
     from repro_torch.kernels.simt_alu import simt_alu
     out = {}
-    for W in (8, 4096):          # the staged path's shape; a large one
-        x = alu_inputs(rng, W, list(range(28)))
-        ms, event_ms = timed(lambda: simt_alu(*x), 200)
+    for label, shape in ALU_SHAPES:
+        rows = int(np.prod(shape[:-1]))
+        x = [t.view(*shape[:-1], *t.shape[1:])
+             for t in alu_inputs(rng, rows, list(range(28)))]
+        reps = 200 if rows <= 4096 else 100
+        ms, ev_ms = timed(lambda: simt_alu(*x), reps)
         plain_ms = device_ms(lambda: simt_alu_ref(*x), 5)
-        nbytes = (W + 8 * W * 32) * 4          # op + 6 operands in, 2 out
-        ops = W * 32 * 8      # selected op, difference, 4 flags, 2 masks
+        nbytes = (rows + 8 * rows * 32) * 4     # op + 6 operands in, 2 out
+        ops = rows * 32 * 8   # selected op, difference, 4 flags, 2 masks
         bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
-        out[W] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms,
-                      bound_ms=bound,
-                      bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                      >= ops / INT32_OPS_PER_S else "operations")
-        log(f"[timing] simt_alu W={W}x32: device {ms:.4f} ms (events, "
-            f"back to back: {event_ms:.4f} ms), plain device "
-            f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({nbytes} B)")
+        out[label] = dict(ms=ms, event_ms=ev_ms, plain_ms=plain_ms,
+                          bound_ms=bound, share=bound / ms, nbytes=nbytes,
+                          bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                          >= ops / INT32_OPS_PER_S else "operations")
+        cold = ""
+        if label == "65536x32":
+            out[label]["cold_ms"] = l2_cold_ms(lambda: simt_alu(*x), 50)
+            out[label]["cold_share"] = bound / out[label]["cold_ms"]
+            cold = (f"; L2 emptied before each call "
+                    f"{out[label]['cold_ms']:.4f} ms, "
+                    f"{out[label]['cold_share']:.1%} of the bound")
+        log(f"[timing] simt_alu {label}: device {ms:.4f} ms (events, "
+            f"back to back: {ev_ms:.4f} ms), plain device "
+            f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({nbytes} B), "
+            f"{bound / ms:.1%} of the bound{cold}")
+    big = out["65536x32"]
+    if min(big["share"], big["cold_share"]) < ALU_BOUND_SHARE:
+        raise AssertionError(f"simt_alu at 65536x32: {big['share']:.1%} and "
+                             f"(L2 emptied) {big['cold_share']:.1%} of its "
+                             f"bound, below {ALU_BOUND_SHARE:.0%}")
+    path = out["4x8x32, the staged path"]
     return dict(name="simt_alu", route="cuda", variant="single",
                 source="src/repro_torch/csrc/simt_alu.cu",
                 replaces=SIMT_REPLACES, launches=launches_on_path,
-                max_abs_err=max_err, library_ms=None, **out[8])
+                max_abs_err=max_err, library_ms=None,
+                staged_matmul_wall_ms=staged_wall * 1e3,
+                by_shape={k: {f: v[f] for f in ("ms", "event_ms", "bound_ms",
+                                                "share", "cold_ms",
+                                                "cold_share") if f in v}
+                          for k, v in out.items()},
+                **{k: path[k] for k in ("ms", "event_ms", "plain_ms",
+                                        "bound_ms", "bound_by")})
 
 
 #: cycles a block may run in the budgeted comparison on the card (about
@@ -976,7 +1111,7 @@ def time_matmul(launches_on_path, max_err, ab):
     from repro_torch.kernels.ref import matmul_ref
     out = {}
     for a, b in (ab, tuple(x.bfloat16() for x in ab)):
-        ms, event_ms = timed(
+        ms, ev_ms = timed(
             lambda: ops.matmul(a, b, bm=128, bn=128, bk=128), 100)
         plain_ms = device_ms(lambda: matmul_ref(a, b), 100)
         lib_ms, lib_event = timed(lambda: torch.matmul(a, b), 100)
@@ -986,11 +1121,11 @@ def time_matmul(launches_on_path, max_err, ab):
         flops = 2 * M * N * K
         bound_ms, by, peak = bound(nbytes, flops, a.dtype)
         log(f"[timing] matmul {M}x{K}x{N} {str(a.dtype)[6:]}, device "
-            f"(events, back to back): {ms:.4f} ms ({event_ms:.4f}), plain "
+            f"(events, back to back): {ms:.4f} ms ({ev_ms:.4f}), plain "
             f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms "
             f"({lib_event:.4f}); bound {bound_ms:.5f} ms ({nbytes} B, "
             f"{flops} FLOP, {by}; peak {peak})")
-        out[a.dtype] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+        out[a.dtype] = dict(ms=ms, event_ms=ev_ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
     return dict(name="matmul", route="cuda", variant="simt",
                 source="src/repro_torch/csrc/matmul.cu",
@@ -1030,9 +1165,9 @@ def main() -> int:
     rng = np.random.default_rng(0)
     alu_err = phase_simt_alu(rng)
     phase_fused_vs_plain()
-    alu_launches = phase_staged_cuda(_build.LAUNCHES)
+    alu_launches, staged_wall = phase_staged_cuda(_build.LAUNCHES)
     fused_launches, _ = phase_main_path(_build.LAUNCHES)
-    kernels = [time_simt_alu(rng, alu_launches, alu_err),
+    kernels = [time_simt_alu(rng, alu_launches, alu_err, staged_wall),
                time_fused(fused_launches)]
     flash_err = phase_flash_vs_plain()
     mm_launches, mm_err, mm_inputs = phase_matmul_vs_plain(_build.LAUNCHES)

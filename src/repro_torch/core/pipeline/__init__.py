@@ -16,7 +16,10 @@ One module per pipeline stage of the paper's SM:
 the (W, 32) lane grid, while per-warp cycle accounting still charges the
 seed's serialized-issue cost.  :func:`run_block_body` is the machine
 loop, a Python loop here (``lax.while_loop`` in the JAX package); staged
-it is the plain version of the fused kernel.
+it is the plain version of the fused kernel.  :func:`block_loop` steps a
+whole dispatch group at once: the state carries a leading position axis
+and every stage works over it, as the JAX executor's ``vmap`` over
+positions does.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 from .. import isa
 from .state import (EXECUTE_BACKENDS, FINISHED, READY, WAIT, Counters,
                     MachineConfig, SMState, _pack, _unpack, as_int32,
-                    clamp_index, init_state, resolve_device)
+                    clamp_index, init_state, resolve_device, select_state)
 from .fetch_decode import Decoded, fetch_decode
 from .read import Operands, read_operands
 from .execute import execute
@@ -47,8 +50,10 @@ def cond_lut(device) -> torch.Tensor:
 
 def sm_step(cfg: MachineConfig, code: torch.Tensor, lut: torch.Tensor,
             block_dim_xy, block_xy, grid_xy, st: SMState) -> SMState:
-    """One lockstep step: every READY warp runs the full pipeline.  The
-    geometry arguments are (x, y) pairs of Python ints."""
+    """One lockstep step: every READY warp runs the full pipeline.  For one
+    block the geometry arguments are (x, y) pairs of ints and ``code`` is
+    (C, NUM_FIELDS); for a state of P blocks they are (P, 2) tensors and
+    (P, C, NUM_FIELDS), one row per position."""
     dec = fetch_decode(code, st)
     ops = read_operands(cfg, lut, block_dim_xy, block_xy, grid_xy, st, dec)
     result, nib_new = execute(cfg, dec, ops)
@@ -65,23 +70,41 @@ def sm_step(cfg: MachineConfig, code: torch.Tensor, lut: torch.Tensor,
 
 def block_loop(cfg: MachineConfig, code: torch.Tensor, block_dim_xy,
                block_xy, grid_xy, st: SMState):
-    """Step ``st`` until every warp is FINISHED or ``max_cycles`` is
-    reached; returns (final state, steps taken, store steps).  A store
-    step is one in which some live warp's instruction is STS or STG: the
-    steps in which the fused kernel orders its loads before its stores
-    with a second barrier (a () int32 tensor, kept on the device)."""
-    lut = cond_lut(code.device)
-    ops = code[:, isa.F_OP]
-    is_store = (ops == isa.STG) | (ops == isa.STS)
-    steps = 0
-    store_steps = torch.zeros((), dtype=torch.int32, device=code.device)
-    while bool(((st.wstate != FINISHED).any()
-                & (st.counters.cycles < cfg.max_cycles)).item()):
-        store_steps += (is_store[clamp_index(st.pc, code.shape[0])]
-                        & (st.wstate != FINISHED)).any()
-        st = sm_step(cfg, code, lut, block_dim_xy, block_xy, grid_xy, st)
-        steps += 1
-    return st, steps, store_steps
+    """Step ``st`` (one block, or P blocks with ``code`` and the geometry
+    per position, as :func:`sm_step` takes them) until no position is
+    live; returns (final state, steps, store steps), int32 tensors with
+    the state's leading shape.
+
+    A position is live while some warp is not FINISHED and its cycles are
+    below ``max_cycles``.  Every step runs all positions at once, one
+    execute-stage call for all their rows, and makes one host sync (the
+    count of live positions); a position that is no longer live keeps its
+    whole state, counters included, and its steps stop counting: the JAX
+    package's ``vmap`` of ``lax.while_loop``.  A store step is one in
+    which some live warp's instruction is STS or STG: the steps in which
+    the fused kernel orders its loads before its stores with a second
+    barrier."""
+    dev = code.device
+    lut = cond_lut(dev)
+    # geometry on the device once, not as host pairs copied every step
+    geom = [torch.as_tensor(v, device=dev).to(torch.int64)
+            for v in (block_dim_xy, block_xy, grid_xy)]
+    ops = code[..., isa.F_OP]
+    is_store = (ops == isa.STG) | (ops == isa.STS)        # (..., C)
+    steps = torch.zeros(st.pc.shape[:-1], dtype=torch.int32, device=dev)
+    store_steps = torch.zeros_like(steps)
+    while True:
+        running = st.wstate != FINISHED
+        live = running.any(-1) & (st.counters.cycles < cfg.max_cycles)
+        n_live = int(live.sum())
+        if n_live == 0:
+            return st, steps, store_steps
+        stores = torch.take_along_dim(
+            is_store, clamp_index(st.pc, is_store.shape[-1]), dim=-1)
+        store_steps += live & (stores & running).any(-1)
+        steps += live
+        nxt = sm_step(cfg, code, lut, *geom, st)
+        st = nxt if n_live == live.numel() else select_state(live, nxt, st)
 
 
 def run_block_body(cfg: MachineConfig, n_warps: int, code: torch.Tensor,

@@ -3,7 +3,9 @@
 
 A backend is a pure function of decoded operands: the per-warp opcode
 vector plus the pre-gathered (W, 32) lane operands in, the ALU result and
-the ISETP flag nibble for every lane out.
+the ISETP flag nibble for every lane out.  For a state of P blocks the
+operands are (P, W, 32), and one call covers all P x W rows, as the
+Pallas kernel sees (P, W, 32) under the JAX executor's ``vmap``.
 
 * ``"torch"`` — :func:`repro_torch.kernels.ref.simt_alu_ref`, plain torch
   on any device;
@@ -37,7 +39,7 @@ def execute(cfg: MachineConfig, dec: Decoded,
         dec.op, ops.s1, ops.s2, ops.s3, ops.cond_val.to(torch.int32),
         ops.s2r_val, ops.exec_mask.to(torch.int32),
         enable_mul=cfg.enable_mul, num_read_operands=cfg.num_read_operands)
-    opb = dec.op[:, None]
+    opb = dec.op[..., None]
     result = torch.where(opb == isa.LDG, ops.ld_g,
                          torch.where(opb == isa.LDS, ops.ld_s, result))
     return result, nib

@@ -21,7 +21,8 @@ from .state import READY, WAIT, SMState, _unpack, clamp_index
 
 class Decoded(NamedTuple):
     """Per-warp decoded issue bundle; every field is a (W,) vector except
-    the (W, 32) ``active`` lane mask updated by the sync pop."""
+    the (W, 32) ``active`` lane mask updated by the sync pop (each with a
+    leading P axis for a state of P blocks)."""
     issued: torch.Tensor      # (W,) bool — warp issues this step
     wstate: torch.Tensor      # (W,) int32 — after barrier release
     op: torch.Tensor
@@ -44,38 +45,44 @@ class Decoded(NamedTuple):
 
 
 def fetch_decode(code: torch.Tensor, st: SMState) -> Decoded:
-    W, D = st.stack_addr.shape
-    arange_w = torch.arange(W, device=code.device)
+    """``code`` (C, NUM_FIELDS) for one block, or (P, C, NUM_FIELDS), each
+    position's own program, for a state of P blocks."""
+    D = st.stack_addr.shape[-1]
 
     # ---- barrier release: if nothing is ready, wake all BAR waiters
-    none_ready = ~(st.wstate == READY).any()
+    none_ready = ~(st.wstate == READY).any(-1, keepdim=True)
     wstate = torch.where(none_ready & (st.wstate == WAIT), READY,
                          st.wstate).to(torch.int32)
     issued = wstate == READY
 
     # ---- Fetch: one clamped gather for every warp's PC
-    instr = code[clamp_index(st.pc, code.shape[0])]      # (W, NUM_FIELDS)
-    op = instr[:, isa.F_OP]
-    flags = instr[:, isa.F_FLAGS]
+    pc = clamp_index(st.pc, code.shape[-2])[..., None]
+    instr = torch.take_along_dim(code, pc, dim=-2)      # (..., W, FIELDS)
+    op = instr[..., isa.F_OP]
+    flags = instr[..., isa.F_FLAGS]
 
     # ---- reconvergence-point pop (.S), §4.1 / Fig. 2 ------------------
-    top = clamp_index(torch.clamp(st.sp - 1, min=0), D)
-    top_addr = st.stack_addr[arange_w, top]
-    top_type = st.stack_type[arange_w, top]
-    top_mask = _unpack(st.stack_mask[arange_w, top])     # (W, 32)
+    top = clamp_index(torch.clamp(st.sp - 1, min=0), D)[..., None]
+
+    def at_top(stack):
+        return torch.take_along_dim(stack, top, dim=-1)[..., 0]
+
+    top_addr = at_top(st.stack_addr)
+    top_type = at_top(st.stack_type)
+    top_mask = _unpack(at_top(st.stack_mask))           # (..., W, 32)
     do_pop = issued & ((flags & isa.FLAG_SYNC) != 0) & (st.sp > 0)
     pop_taken = do_pop & (top_type == isa.STACK_TAKEN)
-    active = torch.where(do_pop[:, None], top_mask, st.active)
+    active = torch.where(do_pop[..., None], top_mask, st.active)
     sp = (st.sp - do_pop.to(torch.int32)).to(torch.int32)
     exec_this = issued & ~pop_taken
 
     return Decoded(
         issued=issued, wstate=wstate, op=op,
-        dst=instr[:, isa.F_DST], src1=instr[:, isa.F_SRC1],
-        src2=instr[:, isa.F_SRC2], src3=instr[:, isa.F_SRC3],
-        imm=instr[:, isa.F_IMM], flags=flags,
-        gpred=instr[:, isa.F_GPRED], gcond=instr[:, isa.F_GCOND],
-        pdst=instr[:, isa.F_PDST],
+        dst=instr[..., isa.F_DST], src1=instr[..., isa.F_SRC1],
+        src2=instr[..., isa.F_SRC2], src3=instr[..., isa.F_SRC3],
+        imm=instr[..., isa.F_IMM], flags=flags,
+        gpred=instr[..., isa.F_GPRED], gcond=instr[..., isa.F_GCOND],
+        pdst=instr[..., isa.F_PDST],
         guarded=(flags & isa.FLAG_GUARD) != 0,
         active=active, sp=sp, exec_this=exec_this, pop_taken=pop_taken,
         do_pop=do_pop, top_addr=top_addr)

@@ -13,8 +13,8 @@ for the design and what bounds it).
 :func:`predecode` turns the programs into the kernel's instruction records
 once, on their device; :func:`fused_sm_run` is the wrapper.  CUDA tensors
 launch the kernel or raise; CPU tensors take the plain version
-:func:`staged_run`, the staged :func:`sm_step` iterated position by
-position.
+:func:`staged_run`, the staged :func:`sm_step` stepping all positions of
+the group together.
 """
 from __future__ import annotations
 
@@ -211,21 +211,19 @@ def fused_sm_run(cfg: MachineConfig, n_warps: int, codes: torch.Tensor,
 def staged_run(cfg: MachineConfig, n_warps: int, codes: torch.Tensor,
                geom: np.ndarray, gmem: torch.Tensor):
     """The plain version of :func:`fused_sm_run`, with its arguments and
-    results: the staged pipeline, one position at a time, on any device.
-    It is also how the executor runs the ``"torch"`` and ``"cuda"``
-    backends, whose execute stage ``cfg.execute_backend`` picks."""
+    results: the staged pipeline over all positions of the group at once
+    (:func:`block_loop` on a state with a leading position axis), on any
+    device.  It is also how the executor runs the ``"torch"`` and
+    ``"cuda"`` backends, whose execute stage ``cfg.execute_backend``
+    picks: one execute-stage call a step for the whole group."""
     from . import block_loop, init_state
-    gws, rows = [], []
-    for p, g in enumerate(np.asarray(geom).tolist()):
-        li, bdim, bdx, bdy, bx, by, gx, gy = g
-        st0 = init_state(cfg, n_warps, bdim, gmem[p])
-        st, steps, store_steps = block_loop(cfg, codes[li], (bdx, bdy),
-                                            (bx, by), (gx, gy), st0)
-        gmem[p] = st.gmem[:-1]
-        gws.append(st.gw[:-1])
-        c = st.counters
-        rows.append(torch.cat([
-            c.op_issues, c.op_lanes,
-            torch.stack([c.cycles, c.stack_ops, c.max_sp, c.overflow,
-                         torch.full_like(c.cycles, steps), store_steps])]))
-    return gmem, torch.stack(gws), torch.stack(rows).to(torch.int32)
+    g = torch.as_tensor(np.asarray(geom, np.int32), device=gmem.device)
+    st0 = init_state(cfg, n_warps, g[:, 1], gmem)
+    st, steps, store_steps = block_loop(
+        cfg, codes[g[:, 0].long()], g[:, 2:4], g[:, 4:6], g[:, 6:8], st0)
+    gmem.copy_(st.gmem[:, :-1])
+    c = st.counters
+    rows = torch.cat([c.op_issues, c.op_lanes, torch.stack(
+        [c.cycles, c.stack_ops, c.max_sp, c.overflow, steps, store_steps],
+        -1)], -1)
+    return gmem, st.gw[:, :-1], rows.to(torch.int32)

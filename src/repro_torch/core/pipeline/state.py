@@ -118,6 +118,9 @@ class Counters(NamedTuple):
 
 
 class SMState(NamedTuple):
+    """One block's state, shapes as below; a state of P blocks (one per
+    schedule position, :func:`init_state`) has a leading P axis on every
+    field and every counter."""
     pc: torch.Tensor          # (W,) int32
     alive: torch.Tensor       # (W, 32) bool — thread not EXITed
     active: torch.Tensor      # (W, 32) bool — current divergence mask
@@ -156,11 +159,11 @@ def drop_index(i: torch.Tensor, n: int):
 
 
 def take_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (W, 32, K), idx (W,) -> (W, 32) column per warp; INT32_MIN where
-    the index is out of range."""
-    i, ok = drop_index(idx, x.shape[2])
-    col = torch.take_along_dim(x, i[:, None, None], dim=2)[..., 0]
-    return torch.where(ok[:, None], col, INT32_MIN)
+    """x (..., W, 32, K), idx (..., W) -> (..., W, 32) column per warp;
+    INT32_MIN where the index is out of range."""
+    i, ok = drop_index(idx, x.shape[-1])
+    col = torch.take_along_dim(x, i[..., None, None], dim=-1)[..., 0]
+    return torch.where(ok[..., None], col, INT32_MIN)
 
 
 def opcode_in(mask: int, op: torch.Tensor) -> torch.Tensor:
@@ -188,38 +191,60 @@ def _unpack(mask_i32: torch.Tensor) -> torch.Tensor:
     return ((m >> _lanes(mask_i32.device)) & 1) != 0
 
 
-def init_state(cfg: MachineConfig, n_warps: int, block_dim: int,
+def init_state(cfg: MachineConfig, n_warps: int, block_dim,
                gmem: torch.Tensor) -> SMState:
     """Fresh block state; threads at or beyond ``block_dim`` start EXITed
-    and a warp without threads starts FINISHED."""
+    and a warp without threads starts FINISHED.
+
+    ``gmem`` (G,) with an int ``block_dim`` gives one block's state;
+    ``gmem`` (P, G) with ``block_dim`` a (P,) tensor or sequence gives the
+    state of P blocks, one per schedule position: every field, the
+    counters included, gains a leading position axis (the JAX package's
+    ``vmap`` over positions, written out)."""
     dev = gmem.device
+    lead = gmem.shape[:-1]
     W, D, R = n_warps, cfg.warp_stack_depth, cfg.n_regs
     i32 = dict(dtype=torch.int32, device=dev)
+    bd = torch.as_tensor(block_dim, **i32).expand(lead)
     tid = torch.arange(W * isa.WARP_SIZE, **i32).reshape(W, isa.WARP_SIZE)
-    exists = tid < block_dim
-    zero = torch.zeros((), **i32)
+    exists = tid < bd[..., None, None]                  # (..., W, 32)
+    zero = torch.zeros(lead, **i32)
     counters = Counters(
-        op_issues=torch.zeros(isa.NUM_OPCODES, **i32),
-        op_lanes=torch.zeros(isa.NUM_OPCODES, **i32),
+        op_issues=torch.zeros((*lead, isa.NUM_OPCODES), **i32),
+        op_lanes=torch.zeros((*lead, isa.NUM_OPCODES), **i32),
         cycles=zero, stack_ops=zero.clone(), max_sp=zero.clone(),
         overflow=zero.clone())
     return SMState(
-        pc=torch.zeros(W, **i32),
+        pc=torch.zeros((*lead, W), **i32),
         alive=exists,
         active=exists.clone(),
-        wstate=torch.where(exists.any(1), READY, FINISHED).to(torch.int32),
-        stack_addr=torch.zeros((W, D), **i32),
-        stack_type=torch.zeros((W, D), **i32),
-        stack_mask=torch.zeros((W, D), **i32),
-        sp=torch.zeros(W, **i32),
-        pred=torch.zeros((W, isa.WARP_SIZE, 4), **i32),
-        regs=torch.zeros((W, isa.WARP_SIZE, R), **i32),
+        wstate=torch.where(exists.any(-1), READY, FINISHED).to(torch.int32),
+        stack_addr=torch.zeros((*lead, W, D), **i32),
+        stack_type=torch.zeros((*lead, W, D), **i32),
+        stack_mask=torch.zeros((*lead, W, D), **i32),
+        sp=torch.zeros((*lead, W), **i32),
+        pred=torch.zeros((*lead, W, isa.WARP_SIZE, 4), **i32),
+        regs=torch.zeros((*lead, W, isa.WARP_SIZE, R), **i32),
         # one extra word = store sentinel for masked-off lanes
-        smem=torch.zeros(cfg.smem_words + 1, **i32),
-        gmem=torch.cat([gmem.to(torch.int32), torch.zeros(1, **i32)]),
-        gw=torch.zeros(gmem.shape[0] + 1, dtype=torch.bool, device=dev),
-        last_warp=torch.tensor(W - 1, **i32),
+        smem=torch.zeros((*lead, cfg.smem_words + 1), **i32),
+        gmem=torch.cat([gmem.to(torch.int32),
+                        torch.zeros((*lead, 1), **i32)], -1),
+        gw=torch.zeros((*lead, gmem.shape[-1] + 1), dtype=torch.bool,
+                       device=dev),
+        last_warp=torch.full(lead, W - 1, **i32),
         counters=counters)
+
+
+def select_state(keep: torch.Tensor, new: SMState, old: SMState) -> SMState:
+    """Per position, ``new`` where ``keep`` (P,) else ``old``: every field,
+    the counters included, as ``vmap`` of ``lax.while_loop`` holds a
+    position whose loop has ended."""
+    def sel(a, b):
+        return torch.where(keep.view(-1, *(1,) * (a.dim() - 1)), a, b)
+
+    return SMState(
+        *(sel(a, b) for a, b in zip(new[:-1], old[:-1])),
+        counters=Counters(*map(sel, new.counters, old.counters)))
 
 
 _BOOL_FIELDS = ("alive", "active", "gw")

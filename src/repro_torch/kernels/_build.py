@@ -122,7 +122,7 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.simt_alu_launch.argtypes = [p] * 9 + [i, i, i, i, p]
+        lib.simt_alu_launch.argtypes = [p] * 8 + [ctypes.c_long, i, i, i, p]
         lib.simt_alu_launch.restype = i
         lib.fused_sm_run_launch.argtypes = [p] * 5 + [i] * 10 + [p]
         lib.fused_sm_run_launch.restype = i
@@ -146,4 +146,8 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_ptr(tensor) -> int:
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    """The CUDA stream a kernel on ``tensor`` launches on: PyTorch's
+    current stream on the tensor's device, from the raw getter PyTorch's
+    own generated kernels call (``current_stream()`` builds a
+    ``torch.cuda.Stream`` object each call, several microseconds)."""
+    return torch._C._cuda_getCurrentRawStream(tensor.get_device())

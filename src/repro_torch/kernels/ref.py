@@ -26,11 +26,13 @@ def wrap32(x: torch.Tensor) -> torch.Tensor:
 
 def simt_alu_ref(op, s1, s2, s3, cond, s2r, mask, *,
                  enable_mul: bool = True, num_read_operands: int = 3):
-    """op (W,) per warp; s1/s2/s3/cond/s2r/mask (W, L) int32.
+    """op (..., W) per warp row; s1/s2/s3/cond/s2r/mask (..., W, L) int32,
+    any leading dimensions (the staged pipeline gives (P, W, 32), one row
+    per warp of each position).
 
-    Returns (result, isetp nibble), both (W, L) int32 and zero outside
-    ``mask``; the nibble is also zero outside ISETP rows."""
-    opb = op[:, None]
+    Returns (result, isetp nibble), both (..., W, L) int32 and zero
+    outside ``mask``; the nibble is also zero outside ISETP rows."""
+    opb = op[..., None]
     condb = cond != 0
     a, b = s1.to(torch.int64), s2.to(torch.int64)
     u1, u2 = a & 0xFFFFFFFF, b & 0xFFFFFFFF

@@ -3,17 +3,19 @@
 
 Replaces the Pallas VPU kernel ``simt_alu`` (``repro/kernels/simt_alu.py``,
 body ``_alu_kernel``, datapath ``alu_datapath``): one decoded integer
-instruction per warp applied across that warp's lanes under the active
+instruction per warp row applied across that row's lanes under the active
 mask, plus the ISETP sign/zero/carry/overflow nibble of ``s1 - s2``.
+Under the JAX executor's ``vmap`` the Pallas kernel sees (P, W, 32); here
+any leading dimensions fold into the rows of one launch, so the staged
+pipeline makes one call a step for a whole dispatch group.
 
-On the card it is ``csrc/simt_alu.cu``: one thread per lane, the opcode
-read per warp row, the datapath shared with the fused SM kernel through
-``csrc/alu_datapath.cuh``.  ``enable_mul`` and ``num_read_operands`` are
-template parameters, so a variant without the multiplier or the third
-read port has no multiply in its code, as in the paper's §4.2.  The TPU
-kernel's (8, 128) padding is gone: lanes are read where they lie.  The
-kernel is bound by memory traffic (seven int32 inputs and two outputs per
-lane, a few integer operations each).
+On the card it is ``csrc/simt_alu.cu``, bound by memory traffic (six int32
+operands in and two out a lane, no word used twice), with the datapath
+shared with the fused SM kernel through ``csrc/alu_datapath.cuh``; one
+thread a lane.  ``enable_mul`` and ``num_read_operands`` are template
+parameters, so a variant without the multiplier or the third read port has
+no multiply in its code, as in the paper's §4.2.  The TPU kernel's (8, 128)
+padding is gone: lanes are read where they lie.
 
 CPU tensors take the plain version
 :func:`repro_torch.kernels.ref.simt_alu_ref`; CUDA tensors launch the
@@ -29,32 +31,36 @@ from .ref import simt_alu_ref
 
 def simt_alu(op, s1, s2, s3, cond, s2r, mask, *, enable_mul: bool = True,
              num_read_operands: int = 3):
-    """op (W,) int32; s1/s2/s3/cond/s2r/mask (W, L) int32.
+    """op (..., W) int32; s1/s2/s3/cond/s2r/mask (..., W, L) int32, any
+    leading dimensions.
 
-    Returns (result, isetp nibble), both (W, L) int32, zero outside
+    Returns (result, isetp nibble), both (..., W, L) int32, zero outside
     ``mask``."""
     if not s1.is_cuda:
         return simt_alu_ref(op, s1, s2, s3, cond, s2r, mask,
                             enable_mul=enable_mul,
                             num_read_operands=num_read_operands)
-    lanes = (s1, s2, s3, cond, s2r, mask)
-    W, L = s1.shape
-    if op.shape != (W,) or any(x.shape != (W, L) for x in lanes):
-        raise ValueError(f"simt_alu: op must be ({W},) and every lane "
-                         f"operand ({W}, {L})")
-    if any(x.dtype != torch.int32 or x.device != s1.device
-           for x in (op,) + lanes):
+    shape = s1.shape
+    if (op.shape != shape[:-1] or (s2.shape, s3.shape, cond.shape,
+                                   s2r.shape, mask.shape) != (shape,) * 5):
+        raise ValueError(f"simt_alu: op must be {tuple(shape[:-1])} and "
+                         f"every lane operand {tuple(shape)}")
+    ins = (op.contiguous(), s1.contiguous(), s2.contiguous(),
+           s3.contiguous(), cond.contiguous(), s2r.contiguous(),
+           mask.contiguous())
+    dev = s1.get_device()
+    if {(x.dtype, x.get_device()) for x in ins} != {(torch.int32, dev)}:
         raise ValueError("simt_alu: every input must be int32 on one device")
-    op, *lanes = (x.contiguous() for x in (op,) + lanes)
-    out = torch.empty((W, L), dtype=torch.int32, device=s1.device)
-    nib = torch.empty_like(out)
-    if out.numel() == 0:
-        return out, nib
+    # one allocation: the results, then the nibbles
+    both = s1.new_empty((2, *shape))
+    if both.numel() == 0:
+        return torch.unbind(both)
+    L = shape[-1]
     lib = _build.load()
     rc = lib.simt_alu_launch(
-        op.data_ptr(), *(x.data_ptr() for x in lanes), out.data_ptr(),
-        nib.data_ptr(), W, L, int(enable_mul),
-        3 if num_read_operands >= 3 else 2, _build.stream_ptr(s1))
+        *(x.data_ptr() for x in ins), both.data_ptr(), s1.numel() // L, L,
+        int(enable_mul), 3 if num_read_operands >= 3 else 2,
+        _build.stream_ptr(s1))
     _build.check(rc, "simt_alu")
     _build.LAUNCHES["simt_alu"] += 1
-    return out, nib
+    return torch.unbind(both)

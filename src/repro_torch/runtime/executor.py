@@ -201,6 +201,23 @@ class Schedule(NamedTuple):
     records: Optional[torch.Tensor]   # (L, C, 4) int32, or None
 
 
+def group_bounds(n_blocks: int, n_sm: int,
+                 chunk: int) -> List[Tuple[int, int]]:
+    """The dispatch groups of ``n_blocks`` positions as (lo, hi) bounds.
+    Position p runs on SM ``p % n_sm`` in super-step ``p // n_sm``; a group
+    spans ``spd`` super-steps, ``chunk // n_sm`` at most, ``spd`` halving
+    while the rest still fits."""
+    spd_max, lo, out = max(1, chunk // n_sm), 0, []
+    while lo < n_blocks:
+        spd = spd_max
+        while spd // 2 >= -(-(n_blocks - lo) // n_sm):
+            spd //= 2
+        hi = min(lo + spd * n_sm, n_blocks)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
 def run_groups(cfg: MachineConfig, n_warps: int, n_sm: int, chunk: int,
                codes: torch.Tensor, sched: Schedule, gmems: torch.Tensor):
     """The dispatch-group loop: each group's gmem snapshots, one run of its
@@ -211,33 +228,23 @@ def run_groups(cfg: MachineConfig, n_warps: int, n_sm: int, chunk: int,
     With the fused backend on the card it makes no synchronizing call, so
     the host queues group g+1 while group g runs: it reads only host
     geometry and device tensors sliced from ``sched``."""
-    n_blocks = len(sched.geom)
-    spd_max = max(1, chunk // n_sm)
     sm_cyc = torch.zeros(n_sm, dtype=torch.int64, device=gmems.device)
     ctr_groups = []
-    lo = 0
-    while lo < n_blocks:
-        # position p -> SM p % n_sm, super-step p // n_sm; a group spans
-        # spd super-steps, spd halving while the rest still fits
-        spd = spd_max
-        while spd // 2 >= -(-(n_blocks - lo) // n_sm):
-            spd //= 2
-        take = min(spd * n_sm, n_blocks - lo)
-        geom = sched.geom[lo:lo + take]
-        snap = gmems.index_select(0, sched.launch_ids[lo:lo + take])
+    for lo, hi in group_bounds(len(sched.geom), n_sm, chunk):
+        geom = sched.geom[lo:hi]
+        snap = gmems.index_select(0, sched.launch_ids[lo:hi])
         if sched.records is None:
             mem, wrt, ctr = staged_run(cfg, n_warps, codes, geom, snap)
         else:
             mem, wrt, ctr = fused_sm_run(
                 cfg, n_warps, codes, geom, snap, records=sched.records,
-                geom_dev=sched.geom_dev[lo:lo + take])
+                geom_dev=sched.geom_dev[lo:hi])
         # position-order merge: later positions overwrite earlier ones
         for p, li in enumerate(geom[:, 0].tolist()):
             gmems[li] = torch.where(wrt[p], mem[p], gmems[li])
         cost = ctr[:, C_CYCLES].to(torch.int64) + BLOCK_SCHED_OVERHEAD
-        sm_cyc.index_add_(0, sched.sm_ids[lo:lo + take], cost)
+        sm_cyc.index_add_(0, sched.sm_ids[lo:hi], cost)
         ctr_groups.append(ctr)
-        lo += take
     return torch.cat(ctr_groups), sm_cyc
 
 

@@ -58,6 +58,74 @@ def test_simt_alu_kernel_matches_plain(card, W):
     assert _build.LAUNCHES["simt_alu"] == 4
 
 
+def _alu_operands(rng, shape, device):
+    """op shape[:-1] (every opcode and two outside the ISA) and six int32
+    lane operands of ``shape``."""
+    op = rng.integers(-1, isa.NUM_OPCODES + 1, shape[:-1]).astype(np.int32)
+    lanes = [rng.integers(-2 ** 31, 2 ** 31, shape).astype(np.int32)
+             for _ in range(4)] + [rng.integers(0, 2, shape).astype(np.int32)
+                                   for _ in range(2)]
+    return [torch.as_tensor(x, device=device) for x in [op] + lanes]
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((4, 8, 32), 0),          # a dispatch group: P x W rows of 32
+    ((3, 5, 32), 0),
+    ((2, 7, 30), 0),          # rows not whole 16-byte vectors
+    ((4, 8, 32), 1),          # operands one word past 16 bytes
+])
+def test_batched_simt_alu_matches_ref(card, shape, offset):
+    rng = np.random.default_rng(sum(shape) + offset)
+    op, *lanes = _alu_operands(rng, shape, card)
+    if offset:
+        n = lanes[0].numel()
+
+        def shifted(x):
+            buf = torch.empty(n + offset, dtype=torch.int32, device=card)
+            buf[offset:] = x.reshape(-1)
+            return buf[offset:].view(shape)
+
+        lanes = [shifted(x) for x in lanes]
+        assert lanes[0].is_contiguous() and lanes[0].data_ptr() % 16
+    for em in (True, False):
+        for nro in (2, 3):
+            _build.LAUNCHES.clear()
+            got = simt_alu(op, *lanes, enable_mul=em, num_read_operands=nro)
+            assert _build.LAUNCHES == {"simt_alu": 1}
+            ref = simt_alu_ref(op, *lanes, enable_mul=em,
+                               num_read_operands=nro)
+            for a, b in zip(got, ref):
+                assert a.shape == shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_sm", [1, 2])
+def test_staged_cuda_drain_matches_cpu(card, n_sm):
+    """The five paper programs at n=32 in one execute through the staged
+    "cuda" backend: one simt_alu launch a group step, the sum over groups
+    of each group's longest block."""
+    specs = []
+    for name in sorted(ALL):
+        mod = ALL[name]
+        grid, bd = mod.launch(32)
+        specs.append((mod.build(32), grid, bd,
+                      mod.make_gmem(np.random.default_rng(3), 32)))
+    cfg = MachineConfig(execute_backend="cuda")
+    want_dg = scheduler.execute([scheduler.LaunchSpec(*s) for s in specs],
+                                n_sm=n_sm, cfg=cfg, device="cpu")
+    _build.LAUNCHES.clear()
+    got_dg = scheduler.execute([scheduler.LaunchSpec(*s) for s in specs],
+                               n_sm=n_sm, cfg=cfg, device=card)
+    got, want = got_dg.to_results(), want_dg.to_results()
+    for g, w in zip(got, want):
+        for f in w._fields:
+            np.testing.assert_array_equal(np.asarray(getattr(g, f)),
+                                          np.asarray(getattr(w, f)), f)
+    steps = want_dg.block_steps()
+    groups = executor.group_bounds(len(steps), n_sm, 8)
+    assert dict(_build.LAUNCHES) == {
+        "simt_alu": sum(int(steps[lo:hi].max()) for lo, hi in groups)}
+
+
 @pytest.mark.parametrize("backend", ["cuda_fused", "cuda"])
 @pytest.mark.parametrize("name", ["autocorr", "transpose"])
 def test_grid_on_card_matches_cpu(card, name, backend):
