@@ -8,8 +8,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/kernels/``), holds each against its plain PyTorch version, drives
 the main path — the five paper programs at the paper's largest size, n=256,
 through ``scheduler.run_grid`` / ``execute`` with the default
-``execute_backend="cuda_fused"`` — and checks the results against the
-programs' numpy oracles and the analytical cycle replay.  Any failure
+``execute_backend="cuda_fused"``, and the paper's tables computed that way
+— and checks the results against the programs' numpy oracles, the
+analytical cycle replay and the JAX package's table values.  Any failure
 raises and exits non-zero; nothing is caught.  Without a CUDA device, or
 without the repository around it, it exits non-zero before any result.
 
@@ -66,7 +67,23 @@ Phases, each printed as it ends:
    timed at their paths' shapes beside the plain version, one PyTorch
    library call (for attention, each ``scaled_dot_product_attention``
    backend that takes the shape, and which of them the unrestricted call
-   ran), and the bound.
+   ran), and the bound;
+11. the paper's tables at n=32 (``paper_rows``: ``benchmarks/run.py``'s
+   Table 2, Fig. 4, Fig. 5 / Table 3, Table 5 and Table 6 rows, with its
+   formulas, through ``run_grid``/``execute`` with ``"cuda_fused"``) on
+   the card, equal to the same function on the host CPU through the plain
+   ``"torch"`` backend, every row and every number behind it, and to the
+   JAX package's values pinned in ``PINNED_N32`` and ``PINNED_VARIANTS``;
+   ``fused_sm_run`` must launch, and nothing else;
+12. the same tables at n=256 on the card, every program held to its
+   oracle, one ``[paper]`` line per table, and the means over the five
+   programs (Fig. 4 at 8/16/32 SPs, Fig. 5 at 32 SPs on two SMs, Table 5,
+   Table 6's dynamic-energy saving) beside the paper's 44x / 80% / 14%,
+   with the phase's wall time;
+13. the ``"reference"`` backend (the seed one-warp-per-issue interpreter)
+   on the card: ``REFERENCE_PROGRAMS`` at n=32 over two SMs, gmem and
+   every counter equal to ``"cuda_fused"``, no kernel launched, and its
+   wall time.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are on the card named in the
@@ -1135,6 +1152,272 @@ def time_matmul(launches_on_path, max_err, ab):
                             "tc": out[torch.bfloat16]["ms"]})
 
 
+# ------------------------------------------------------------ phases 11-13
+#: the paper's SP counts (Fig. 4, Tables 3 and 5)
+SPS = (8, 16, 32)
+#: rows of ``benchmarks/run.py`` at BENCH_N=32 as the JAX package gives them
+#: (table2 as in BENCH_1786234012.json); the card's rows must equal them
+PINNED_N32 = {
+    "table2_area_1sm_8sp": "lut_bits=29968;state_bits=161040",
+    "table2_area_1sm_16sp": "lut_bits=38416;state_bits=169488",
+    "table2_area_1sm_32sp": "lut_bits=55312;state_bits=186384",
+    "table2_area_2sm_8sp": "lut_bits=59936;state_bits=322080",
+    "table2_area_2sm_16sp": "lut_bits=76832;state_bits=338976",
+    "table2_area_2sm_32sp": "lut_bits=110624;state_bits=372768",
+    "fig4_autocorr_8sp": "speedup=9.13", "fig4_bitonic_8sp": "speedup=16.92",
+    "fig4_matmul_8sp": "speedup=22.01",
+    "fig4_reduction_8sp": "speedup=8.76",
+    "fig4_transpose_8sp": "speedup=15.77",
+    "table5_autocorr_8sp": "energy_red=44%",
+    "table5_bitonic_8sp": "energy_red=71%",
+    "table5_matmul_8sp": "energy_red=63%",
+    "table5_reduction_8sp": "energy_red=64%",
+    "table5_transpose_8sp": "energy_red=54%",
+}
+#: Table 6's variant per program at n=32 (tests/test_customize_energy.py)
+PINNED_VARIANTS = {"autocorr": "stack2", "bitonic": "stack2_nomul",
+                   "matmul": "stack2", "reduction": "stack2",
+                   "transpose": "stack2"}
+#: the programs phase 13 runs through the "reference" backend on the card:
+#: all five (matmul, 2384 issues a block, is most of the phase's time)
+REFERENCE_PROGRAMS = ("autocorr", "bitonic", "matmul", "reduction",
+                      "transpose")
+
+
+def paper_rows(n, device="cuda", backend="cuda_fused"):
+    """The paper's tables at input size ``n`` through the port's entry
+    points, with the formulas and row formats of ``benchmarks/run.py`` at
+    ``BENCH_N=n``: ``table2_area_*``, ``fig4_*`` (8/16/32 SPs),
+    ``fig5_*_2sm`` and ``table3_*`` (from executed one- and two-SM
+    schedules, ``rep.kernel_cycles``), ``table5_*`` and ``table6_*`` (each
+    program on its ``minimal_config``).  Every program's output is held to
+    its numpy oracle and each executed per-SM cycle count to the analytical
+    replay.  Returns (rows, values): the row name -> its ``derived`` string,
+    and the row name -> the numbers behind it."""
+    from repro_torch.core import customize, energy, scheduler
+    from repro_torch.core.machine import MachineConfig
+    from repro_torch.core.programs import ALL, reduction
+    rows, values, cache = {}, {}, {}
+    run_grid = partial(scheduler.run_grid, device=device)
+
+    def emit(name, derived, **v):
+        rows[name], values[name] = derived, v
+
+    def cfg_of(**kw):
+        return MachineConfig(execute_backend=backend, **kw)
+
+    def run(name, cfg):                         # benchmarks/run.py _run
+        if (name, cfg) not in cache:
+            mod = ALL[name]
+            code = mod.build(n)
+            g0 = mod.make_gmem(np.random.default_rng(0), n)
+            if name == "reduction":
+                gmem, passes = reduction.run_passes(run_grid, code, n,
+                                                    g0.copy(), cfg=cfg)
+                res = passes[0]
+            else:
+                res = run_grid(code, *mod.launch(n), g0.copy(), cfg)
+                gmem = res.gmem
+            if not np.array_equal(gmem[mod.out_slice(n)], mod.oracle(g0, n)):
+                raise AssertionError(f"paper n={n} {name}: oracle differs")
+            cache[name, cfg] = res
+        return cache[name, cfg]
+
+    for n_sm in (1, 2):                                       # Table 2
+        for n_sp in SPS:
+            cfg = cfg_of(n_sp=n_sp)
+            lut, bits = cfg.lut_bits() * n_sm, cfg.state_bits() * n_sm
+            emit(f"table2_area_{n_sm}sm_{n_sp}sp",
+                 f"lut_bits={lut};state_bits={bits}", lut_bits=lut,
+                 state_bits=bits)
+    for name in sorted(ALL):                                  # Fig. 4
+        for n_sp in SPS:
+            res = run(name, cfg_of(n_sp=n_sp))
+            simt = res.sm_cycles(1)
+            scal = energy.scalar_model_cycles(res, ALL[name].n_threads(n))
+            emit(f"fig4_{name}_{n_sp}sp", f"speedup={scal / simt:.2f}",
+                 speedup=scal / simt, scalar_cycles=scal, simt_cycles=simt)
+    # Fig. 5 / Table 3: sizes giving each program >= 2 blocks; bitonic
+    # sorts two independent segments
+    n_2sm = {"autocorr": 2 * n, "matmul": n, "transpose": n,
+             "reduction": 32 * n, "bitonic": n}
+    for name in sorted(ALL):
+        mod, m = ALL[name], n_2sm[name]
+        kw = {"blocks": 2} if name == "bitonic" else {}
+        code = mod.build(m, **kw)
+        g0 = mod.make_gmem(np.random.default_rng(0), m, **kw)
+        spec = (code, *mod.launch(m, **kw))
+        for n_sp in SPS:
+            cfg = cfg_of(n_sp=n_sp)
+            dg = scheduler.execute([scheduler.LaunchSpec(*spec, g0.copy())],
+                                   n_sm=1, cfg=cfg, device=device)
+            res = dg.to_results()[0]
+            if name == "reduction":        # the first pass's partials
+                nb, bd = reduction.launch(m)[0][0], 2 * reduction.BD
+                x = g0[reduction.IN_AT:reduction.IN_AT + m].astype(np.int64)
+                want = np.array([x[b * bd:(b + 1) * bd].sum()
+                                 for b in range(nb)]).astype(np.int32)
+                got = res.gmem[reduction.IN_AT + m:reduction.IN_AT + m + nb]
+            else:
+                want = mod.oracle(g0, m, **kw)
+                got = res.gmem[mod.out_slice(m, **kw)]
+            if not np.array_equal(got, want):
+                raise AssertionError(f"paper fig5 {name} n={m}: oracle")
+            dg2 = scheduler.execute([scheduler.LaunchSpec(*spec, g0.copy())],
+                                    n_sm=2, cfg=cfg, device=device)
+            one_r, two_r = dg.report(), dg2.report()
+            for rep in (one_r, two_r):
+                if not np.array_equal(rep.per_sm_cycles,
+                                      res.per_sm_cycles(rep.n_sm)):
+                    raise AssertionError(f"paper fig5 {name}: executed "
+                                         "per-SM cycles != analytical")
+            one, two = one_r.kernel_cycles, two_r.kernel_cycles
+            scal = energy.scalar_model_cycles(res, mod.n_threads(m, **kw))
+            emit(f"fig5_{name}_{n_sp}sp_2sm",
+                 f"speedup_vs_scalar={scal / two:.2f}",
+                 speedup_vs_scalar=scal / two, scalar_cycles=scal,
+                 kernel_cycles_2sm=two)
+            emit(f"table3_{name}_{n_sp}sp",
+                 f"scaling_2sm_over_1sm={one / two:.2f}",
+                 scaling=one / two, kernel_cycles_1sm=one,
+                 kernel_cycles_2sm=two)
+    for name in sorted(ALL):                                  # Table 5
+        for n_sp in SPS:
+            cfg = cfg_of(n_sp=n_sp)
+            res = run(name, cfg)
+            e_simt = energy.simt_energy(res, cfg).total
+            e_scal = energy.scalar_energy(res, ALL[name].n_threads(n)).total
+            red = 100.0 * (1 - e_simt / e_scal)
+            emit(f"table5_{name}_{n_sp}sp", f"energy_red={red:.0f}%",
+                 energy_red=red, e_simt=e_simt, e_scalar=e_scal)
+    base = cfg_of(n_sp=8)                                     # Table 6
+    for name in sorted(ALL):
+        code = ALL[name].build(n)
+        mcfg = customize.minimal_config(code, base)
+        res = run(name, mcfg)
+        area = 100 * (1 - mcfg.lut_bits() / base.lut_bits())
+        e_base = energy.simt_energy(res, base).total
+        e_min = energy.simt_energy(res, mcfg).total
+        dyn = 100 * (1 - e_min / e_base)
+        variant = customize.select_variant(code)
+        emit(f"table6_{name}",
+             f"variant={variant};stack={mcfg.warp_stack_depth};"
+             f"mul={int(mcfg.enable_mul)};area_red={area:.0f}%;"
+             f"dyn_energy_red={dyn:.0f}%", variant=variant, area_red=area,
+             dyn_energy_red=dyn, e_base=e_base, e_min=e_min)
+    return rows, values
+
+
+def log_tables(n, rows):
+    """One ``[paper]`` line per table."""
+    for table in ("table2", "fig4", "fig5", "table3", "table5", "table6"):
+        log(f"[paper] n={n} {table}: " + " ".join(
+            f"{k[len(table) + 1:]}:{v}" for k, v in rows.items()
+            if k.startswith(table + "_")))
+
+
+def phase_paper_n32(launches):
+    """The tables at n=32 on the card (the default ``"cuda_fused"``
+    backend) against the same function on the host CPU through the plain
+    ``"torch"`` backend, every row and every number behind it, and against
+    the JAX package's values pinned above."""
+    t0 = time.perf_counter()
+    plain_rows, plain_values = paper_rows(32, "cpu", "torch")
+    cpu_s = time.perf_counter() - t0
+    launches.clear()
+    t0 = time.perf_counter()
+    rows, values = paper_rows(32)
+    card_s = time.perf_counter() - t0
+    counts = dict(launches)
+    if set(counts) != {"fused_sm_run"}:       # fused_sm_run, and only it
+        raise AssertionError(f"paper n=32 launched {counts}")
+    if rows != plain_rows or values != plain_values:
+        bad = [k for k in rows if rows[k] != plain_rows.get(k)
+               or values[k] != plain_values.get(k)]
+        raise AssertionError(f"paper n=32: card != CPU plain path at {bad}")
+    bad = {k: (rows.get(k), v) for k, v in PINNED_N32.items()
+           if rows.get(k) != v}
+    bad.update({f"table6_{k}": (values[f"table6_{k}"]["variant"], v)
+                for k, v in PINNED_VARIANTS.items()
+                if values[f"table6_{k}"]["variant"] != v})
+    if bad:
+        raise AssertionError(f"paper n=32 differs from the pinned values: "
+                             f"{bad}")
+    log_tables(32, rows)
+    log(f"[paper] n=32: {len(rows)} rows on the card ({card_s:.1f} s, "
+        f"launches {counts}) == the plain path on the host CPU "
+        f"({cpu_s:.1f} s), every row and number; == the {len(PINNED_N32)} "
+        f"pinned rows and the Table 6 variants of the JAX package")
+    return counts["fused_sm_run"], card_s
+
+
+def phase_paper_n256(launches, smi):
+    """The tables at the paper's largest size on the card, and the means
+    over the five programs beside the paper's headline numbers."""
+    launches.clear()
+    t0 = time.perf_counter()
+    rows, values = paper_rows(256)
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    if set(counts) != {"fused_sm_run"}:
+        raise AssertionError(f"paper n=256 launched {counts}")
+    log_tables(256, rows)
+    names = sorted({k.split("_")[1] for k in rows if k.startswith("fig4_")})
+
+    def mean(fmt, key):
+        return float(np.mean([values[fmt.format(p)][key] for p in names]))
+
+    means = {f"fig4_speedup_{sp}sp": mean("fig4_{}_%dsp" % sp, "speedup")
+             for sp in SPS}
+    means["fig5_speedup_32sp_2sm"] = mean("fig5_{}_32sp_2sm",
+                                          "speedup_vs_scalar")
+    means.update({f"table5_energy_red_{sp}sp": mean("table5_{}_%dsp" % sp,
+                                                    "energy_red")
+                  for sp in SPS})
+    means["table6_dyn_energy_red"] = mean("table6_{}", "dyn_energy_red")
+    log(f"[paper] n=256 means over {len(names)} programs: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in means.items())
+        + "; the paper: 44x over MicroBlaze, 80% dynamic-energy saving, a "
+        "further 14% from customized variants (the model's numbers, not a "
+        "criterion)")
+    log(f"[paper] n=256: {len(rows)} rows, every output == its oracle, "
+        f"wall {wall:.1f} s, launches {counts}; {smi}")
+    return counts["fused_sm_run"], wall, means
+
+
+def phase_reference(launches, smi):
+    """The seed one-warp-per-issue interpreter on the card: the programs
+    of ``REFERENCE_PROGRAMS`` at n=32 through ``run_grid`` with
+    ``execute_backend="reference"``, against ``"cuda_fused"`` on the same
+    inputs, gmem and every counter, bit for bit; it launches no kernel."""
+    from repro_torch.core import scheduler
+    from repro_torch.core.machine import MachineConfig
+    from repro_torch.core.programs import ALL
+    n, walls = 32, {}
+    for name in REFERENCE_PROGRAMS:
+        mod = ALL[name]
+        code, (grid, bd) = mod.build(n), mod.launch(n)
+        g0 = mod.make_gmem(np.random.default_rng(9), n)
+        fused = scheduler.run_grid(code, grid, bd, g0.copy(), n_sm=2,
+                                   device="cuda")
+        launches.clear()
+        t0 = time.perf_counter()
+        ref = scheduler.run_grid(code, grid, bd, g0.copy(),
+                                 MachineConfig(execute_backend="reference"),
+                                 n_sm=2, device="cuda")
+        walls[name] = time.perf_counter() - t0
+        if launches:
+            raise AssertionError(f"reference {name} launched "
+                                 f"{dict(launches)}")
+        assert_same(ref, fused, f"reference vs cuda_fused {name}")
+        check_grid(mod, n, g0, ref, f"reference {name}")
+    log(f"[reference] n={n} n_sm=2 on the card: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in walls.items())
+        + f" ({sum(walls.values()):.1f} s); gmem and every counter == "
+        f"cuda_fused, oracles ok, no kernel launched; {smi}")
+    return walls
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from the repository (src/repro_torch "
@@ -1174,6 +1457,12 @@ def main() -> int:
     flash_launches = phase_serving(_build.LAUNCHES)
     kernels += [time_flash(flash_launches, flash_err),
                 time_matmul(mm_launches, mm_err, mm_inputs)]
+    paper32_launches, _ = phase_paper_n32(_build.LAUNCHES)
+    paper256_launches, _, _ = phase_paper_n256(_build.LAUNCHES, smi)
+    phase_reference(_build.LAUNCHES, smi)
+    kernels[1]["launches_by_path"] = {"main path (phase 6)": fused_launches,
+                                      "paper tables n=32": paper32_launches,
+                                      "paper tables n=256": paper256_launches}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

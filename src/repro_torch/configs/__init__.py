@@ -2,9 +2,9 @@
 
 Each module exposes ``SPEC: ArchSpec``.  ``get(name)`` returns it;
 ``reduced(spec)`` builds the same-family small config for CPU tests.
-Only qwen3-0.6b, the dense decoder the serving path runs, is ported so
-far; ``get`` of any other architecture of ``ARCH_IDS`` raises "not yet
-ported".
+Ported so far: qwen3-0.6b, the dense decoder the serving path runs, and
+flexgrip, the paper's overlay configuration (a ``MachineConfig``); ``get``
+of any other architecture of ``ARCH_IDS`` raises "not yet ported".
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ ARCH_IDS = (
     "whisper_medium", "flexgrip",
 )
 #: the architectures whose modules the port has
-PORTED = ("qwen3_0p6b",)
+PORTED = ("qwen3_0p6b", "flexgrip")
 
 # assigned input shapes (LM family): name -> (seq_len, global_batch, kind)
 SHAPES: Dict[str, Tuple[int, int, str]] = {

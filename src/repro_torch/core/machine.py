@@ -16,11 +16,11 @@ block barriers; and the customizable datapath (``enable_mul``,
 Issue disciplines (``MachineConfig.execute_backend``): ``"torch"`` and
 ``"cuda"`` run the staged lockstep pipeline with a plain-torch or CUDA
 execute stage; ``"cuda_fused"`` (the default) runs whole blocks as one
-CUDA kernel; ``"reference"``, the seed one-warp-per-issue interpreter, is
-not yet ported.
+CUDA kernel; ``"reference"`` runs the seed one-warp-per-issue interpreter
+(:func:`issue_one_warp`), the oracle the other three are held to.
 """
 from __future__ import annotations
 
 from .pipeline import (  # noqa: F401  (re-exported public surface)
     EXECUTE_BACKENDS, FINISHED, READY, WAIT, Counters, MachineConfig,
-    SMState, _pack, _unpack, init_state, run_block, sm_step)
+    SMState, _pack, _unpack, init_state, issue_one_warp, run_block, sm_step)

@@ -10,7 +10,9 @@ One module per pipeline stage of the paper's SM:
 * :mod:`.write`        — register/predicate writeback, global/shared stores;
 * :mod:`.control`      — warp stack, EXIT/BAR, next PC, counters;
 * :mod:`.fused`        — whole blocks as ONE CUDA kernel
-  (``execute_backend="cuda_fused"``, the default).
+  (``execute_backend="cuda_fused"``, the default);
+* :mod:`.reference`    — the seed one-warp-per-issue interpreter
+  (``execute_backend="reference"``), the oracle the others are held to.
 
 :func:`sm_step` issues the instruction of every ready warp at once over
 the (W, 32) lane grid, while per-warp cycle accounting still charges the
@@ -19,7 +21,8 @@ loop, a Python loop here (``lax.while_loop`` in the JAX package); staged
 it is the plain version of the fused kernel.  :func:`block_loop` steps a
 whole dispatch group at once: the state carries a leading position axis
 and every stage works over it, as the JAX executor's ``vmap`` over
-positions does.
+positions does.  Its step is :func:`sm_step`, or
+:func:`issue_one_warp` under ``"reference"``.
 """
 from __future__ import annotations
 
@@ -34,12 +37,13 @@ from .read import Operands, read_operands
 from .execute import execute
 from .write import write_back
 from .control import control
+from .reference import issue_one_warp
 from . import fused
 
 __all__ = [
     "EXECUTE_BACKENDS", "READY", "WAIT", "FINISHED", "Counters", "Decoded",
-    "MachineConfig", "Operands", "SMState", "sm_step", "init_state",
-    "run_block", "run_block_body", "_pack", "_unpack",
+    "MachineConfig", "Operands", "SMState", "sm_step", "issue_one_warp",
+    "init_state", "run_block", "run_block_body", "_pack", "_unpack",
 ]
 
 
@@ -83,7 +87,12 @@ def block_loop(cfg: MachineConfig, code: torch.Tensor, block_dim_xy,
     package's ``vmap`` of ``lax.while_loop``.  A store step is one in
     which some live warp's instruction is STS or STG: the steps in which
     the fused kernel orders its loads before its stores with a second
-    barrier."""
+    barrier.
+
+    Under ``"reference"`` a step is :func:`issue_one_warp`, one issue of
+    one warp per position: steps count issues, and store steps stay 0."""
+    reference = cfg.execute_backend == "reference"
+    step = issue_one_warp if reference else sm_step
     dev = code.device
     lut = cond_lut(dev)
     # geometry on the device once, not as host pairs copied every step
@@ -99,11 +108,12 @@ def block_loop(cfg: MachineConfig, code: torch.Tensor, block_dim_xy,
         n_live = int(live.sum())
         if n_live == 0:
             return st, steps, store_steps
-        stores = torch.take_along_dim(
-            is_store, clamp_index(st.pc, is_store.shape[-1]), dim=-1)
-        store_steps += live & (stores & running).any(-1)
+        if not reference:
+            stores = torch.take_along_dim(
+                is_store, clamp_index(st.pc, is_store.shape[-1]), dim=-1)
+            store_steps += live & (stores & running).any(-1)
         steps += live
-        nxt = sm_step(cfg, code, lut, *geom, st)
+        nxt = step(cfg, code, lut, *geom, st)
         st = nxt if n_live == live.numel() else select_state(live, nxt, st)
 
 
@@ -125,7 +135,9 @@ def run_block(code, block_dim, block_xy, grid_xy, gmem,
               cfg: MachineConfig = MachineConfig(), device="cuda"):
     """Execute one thread block; returns (gmem, written-mask, Counters) as
     tensors on ``device``.  ``block_dim`` may be an int (1-D block) or an
-    (x, y) tuple.  Runs on the card unless ``device="cpu"``."""
+    (x, y) tuple.  Runs on the card unless ``device="cpu"``.  Every
+    backend but ``"cuda_fused"`` (``"torch"``, ``"cuda"``, ``"reference"``)
+    runs :func:`run_block_body`."""
     dev = resolve_device(device)
     bdx, bdy = block_dim if isinstance(block_dim, tuple) else (block_dim, 1)
     bdx, bdy = int(bdx), int(bdy)

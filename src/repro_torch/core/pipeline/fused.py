@@ -30,8 +30,11 @@ from ...kernels.ref import wrap32
 from .state import Counters, MachineConfig, clamp_index, drop_index, opcode_in
 
 #: columns of a per-position counter row (op_issues, op_lanes, then these);
+#: C_STEPS counts lockstep steps (issues of one warp under the
+#: ``"reference"`` backend, whose rows come from :func:`staged_run`);
 #: C_STORE_STEPS counts the steps in which some live warp's instruction is
-#: STS or STG, the steps that take the kernel's read/write barrier
+#: STS or STG, the steps that take the kernel's read/write barrier (0 under
+#: ``"reference"``)
 C_CYCLES = 2 * isa.NUM_OPCODES
 C_STACK_OPS, C_MAX_SP, C_OVERFLOW, C_STEPS, C_STORE_STEPS = range(
     C_CYCLES + 1, C_CYCLES + 6)
@@ -215,7 +218,8 @@ def staged_run(cfg: MachineConfig, n_warps: int, codes: torch.Tensor,
     (:func:`block_loop` on a state with a leading position axis), on any
     device.  It is also how the executor runs the ``"torch"`` and
     ``"cuda"`` backends, whose execute stage ``cfg.execute_backend``
-    picks: one execute-stage call a step for the whole group."""
+    picks (one execute-stage call a step for the whole group), and the
+    ``"reference"`` backend (one warp issue per position a step)."""
     from . import block_loop, init_state
     g = torch.as_tensor(np.asarray(geom, np.int32), device=gmem.device)
     st0 = init_state(cfg, n_warps, g[:, 1], gmem)

@@ -38,8 +38,9 @@ READY, WAIT, FINISHED = 0, 1, 2
 #:                      the execute stage only (``"pallas"``);
 #:   ``"cuda_fused"`` — the whole block loop as ONE CUDA kernel
 #:                      (``"pallas_fused"``, :mod:`.fused`); the default;
-#:   ``"reference"``  — the seed one-warp-per-issue interpreter; not yet
-#:                      ported, selecting it raises.
+#:   ``"reference"``  — the seed one-warp-per-issue interpreter
+#:                      (:mod:`.reference`), the oracle the other
+#:                      backends are held to; plain torch on any device.
 #: On CPU tensors ``"cuda"`` and ``"cuda_fused"`` run their kernels' plain
 #: versions; on CUDA tensors they launch the kernels or raise.
 EXECUTE_BACKENDS = ("torch", "cuda", "cuda_fused", "reference")
@@ -70,15 +71,31 @@ class MachineConfig:
             raise ValueError(
                 f"execute_backend must be one of {EXECUTE_BACKENDS}, "
                 f"got {self.execute_backend!r}")
-        if self.execute_backend == "reference":
-            raise NotImplementedError(
-                "execute_backend='reference' (the seed one-warp-per-issue "
-                "interpreter) is not yet ported to repro_torch")
 
     @property
     def rows_per_warp(self) -> int:
         """A 32-thread warp is arranged into rows of n_sp threads."""
         return max(1, isa.WARP_SIZE // self.n_sp)
+
+    def lut_bits(self, n_warps: int = 8) -> int:
+        """LUT/FF-area proxy (paper Tables 2/6): warp-stack registers
+        (66 bits/entry, Fig. 2), predicate file, per-warp control state,
+        and the multiplier / third-operand-port datapaths.  The register
+        file is EXCLUDED — on the FPGA it lives in block RAM, which the
+        paper reports separately from LUT area.
+        """
+        stack = n_warps * self.warp_stack_depth * 66
+        pred = n_warps * isa.WARP_SIZE * 4 * 4
+        ctrl = n_warps * (32 + 32 + 2)
+        # read-operand units + ALU datapath per SP lane
+        read_units = self.num_read_operands * self.n_sp * 32 * 3
+        mul = (self.n_sp * 32 * 24) if self.enable_mul else 0
+        return stack + pred + ctrl + read_units + mul
+
+    def state_bits(self, n_warps: int = 8) -> int:
+        """Total architectural state (LUT proxy + BRAM regfile)."""
+        regfile = n_warps * isa.WARP_SIZE * self.n_regs * 32
+        return self.lut_bits(n_warps) + regfile
 
 
 def resolve_device(device) -> torch.device:

@@ -23,12 +23,18 @@ of its blocks' cycles)``.  The schedule is executed:
   (``BLOCK_SCHED_OVERHEAD`` per block), cross-checked against the
   analytical replay :meth:`GridResult.per_sm_cycles`.
 
+The stacked gmem holds ``bucket_launches(L)`` rows, as the JAX package's
+does, so ``MultiSMReport.device_gmem_words`` and ``padded_gmem_words`` are
+the reference's figures and what the allocation holds; the padding rows
+stay zero and no position names them.
+
 Differences from the JAX package, none of which changes a result: there
-is no jit-shape cache to feed, so neither the launch count nor the SM width
-is padded to a bucket, and a group's padding positions are not run; the
-per-SM accumulator is int64 rather than split hi/lo int32 lanes, so it has
-no blocks-per-SM bound.
-Sharding across devices, ``TransferLog`` and the tracing spans wait.
+is no jit-shape cache to feed, so the SM width is not padded to a bucket
+unless the caller asks (``pad_warps``), and a group's padding positions
+are not run; the per-SM accumulator is int64 rather than split hi/lo
+int32 lanes, so it has no blocks-per-SM bound.
+Sharding across devices (``shard_sm`` on more than one device),
+``TransferLog`` and the tracing spans wait.
 """
 from __future__ import annotations
 
@@ -50,10 +56,20 @@ from .registry import Module, ModuleRegistry
 # register-file id init — §3.1 "initializes registers ... with thread IDs").
 BLOCK_SCHED_OVERHEAD = 24
 
+#: Launch-batch-width buckets: a drain of L concurrent launches pads its
+#: stacked gmem to the next bucket, as the JAX package does for its
+#: jit-shape cache.
+LAUNCH_BUCKETS = (1, 2, 4, 8, 16, 32)
+
+
+def bucket_launches(n: int) -> int:
+    return reg.bucket(n, LAUNCH_BUCKETS, 32)
+
 
 class GridResult(NamedTuple):
     """Per-launch result: final memory plus the paper's activity counters
-    (host numpy)."""
+    (host numpy).  ``gmem`` is a device tensor under
+    ``DeviceGrid.to_results(host_gmem=False)``."""
     gmem: np.ndarray            # final global memory (original length)
     cycles_per_block: np.ndarray
     op_issues: np.ndarray       # (NUM_OPCODES,) int64, summed over blocks
@@ -85,6 +101,37 @@ class MultiSMReport(NamedTuple):
     useful_gmem_words: int = 0  # words the launches actually asked for
     max_sp: int = 0             # warp-stack high-water mark (max over blocks)
     overflow: bool = False      # any block's warp stack overflowed
+
+    @property
+    def kernel_cycles(self) -> int:
+        """Makespan of this dispatch group: the busiest SM's cycles.
+        Sub-batches of a drain run back-to-back, so a drain's makespan
+        is the sum of its groups' kernel_cycles — the duration the
+        cost-model policies (``BalancedDrain``) minimize."""
+        return int(self.per_sm_cycles.max())
+
+    @property
+    def busy_cycles(self) -> int:
+        """Total SM-cycles of real work in this group (sum over SMs).
+        ``busy / (n_sm * kernel_cycles)`` is the drain-level
+        ``DrainStats.duration_balance``."""
+        return int(self.per_sm_cycles.sum())
+
+    @property
+    def padded_gmem_words(self) -> int:
+        """Memory the bucketing wasted: allocation minus requested words.
+
+        This is the per-dispatch-group cost the drain policies minimize —
+        a monolithic drain pads every tenant to the batch-wide max gmem
+        bucket; bucket-keyed sub-batching keeps it near zero.
+        """
+        return self.device_gmem_words - self.useful_gmem_words
+
+    @property
+    def occupancy(self) -> float:
+        """Fraction of SM-step slots holding a real (non-padding) block."""
+        slots = self.n_steps * self.n_sm
+        return self.n_blocks / slots if slots else 0.0
 
 
 class LaunchSpec(NamedTuple):
@@ -123,7 +170,7 @@ class DeviceGrid:
                  sm_cyc: torch.Tensor, n_sm: int, n_steps: int,
                  launch_offsets: Sequence[int], launch_blocks: Sequence[int],
                  orig_lens: Sequence[int]):
-        self._gmems = gmems              # (L, G) int32
+        self._gmems = gmems              # (bucket_launches(L), G) int32
         self._ctr = ctr                  # (n_blocks, N_CTR) int32
         self._sm_cyc = sm_cyc            # (n_sm,) int64
         self.n_sm = n_sm
@@ -132,6 +179,7 @@ class DeviceGrid:
         self._blocks = list(launch_blocks)
         self._orig_lens = list(orig_lens)
         self._host: Optional[tuple] = None
+        self._results: dict = {}
 
     def launch_gmem(self, i: int) -> torch.Tensor:
         """Launch ``i``'s final global memory, on the device."""
@@ -161,21 +209,29 @@ class DeviceGrid:
             max_sp=int(c.max_sp.max()) if nb else 0,
             overflow=bool(c.overflow.any()))
 
-    def to_results(self) -> List[GridResult]:
-        """One :class:`GridResult` per launch, gmem synced to numpy."""
+    def to_results(self, host_gmem: bool = True) -> List[GridResult]:
+        """One :class:`GridResult` per launch, memoized per flag.  With
+        ``host_gmem=True`` (default) each launch's final gmem is synced to
+        numpy; ``host_gmem=False`` leaves the ``gmem`` fields as device
+        tensors (the resident serving mode).  Counters come from the one
+        host fetch either way."""
+        if host_gmem in self._results:
+            return self._results[host_gmem]
         ctr, _ = self._host_fetch()
         c = counters_from_rows(ctr)
         out = []
         for i, (off, nb) in enumerate(zip(self._offsets, self._blocks)):
             sl = slice(off, off + nb)
+            gmem = self.launch_gmem(i)
             out.append(GridResult(
-                gmem=self.launch_gmem(i).cpu().numpy(),
+                gmem=gmem.cpu().numpy() if host_gmem else gmem,
                 cycles_per_block=c.cycles[sl],
                 op_issues=c.op_issues[sl].sum(0),
                 op_lanes=c.op_lanes[sl].sum(0),
                 stack_ops=int(c.stack_ops[sl].sum()),
                 max_sp=int(c.max_sp[sl].max()),
                 overflow=bool(c.overflow[sl].any())))
+        self._results[host_gmem] = out
         return out
 
 
@@ -250,19 +306,33 @@ def run_groups(cfg: MachineConfig, n_warps: int, n_sm: int, chunk: int,
 
 def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
             cfg: MachineConfig = MachineConfig(), chunk: int = 8,
-            device="cuda") -> DeviceGrid:
+            pad_warps: Optional[int] = None,
+            registry: Optional[ModuleRegistry] = None,
+            shard_sm: bool = False, device="cuda") -> DeviceGrid:
     """Execute the blocks of ``launches`` round-robin across ``n_sm`` SMs.
 
     Blocks may not communicate (true of the paper's benchmarks); write
     sets merge in global block order after each dispatch group.  ``chunk``
     bounds the positions per group (rounded to a multiple of ``n_sm``).
-    The SM is as wide as the widest launch's block.  Runs on the card
-    unless ``device="cpu"``; without a card it raises.
+    The SM is as wide as the widest launch's block, or ``pad_warps`` warps
+    (the serving path pads all tenants to one width; warps beyond a
+    launch's threads start FINISHED, so counters stay exact); fewer than
+    the widest launch needs raises.  ``registry`` replaces the default
+    module registry.  ``shard_sm=True`` runs this single-device path
+    where only one device exists, as the JAX package falls back to it;
+    with more than one CUDA device it raises (not yet ported).  Runs on
+    the card unless ``device="cpu"``; without a card it raises.
     """
     dev = resolve_device(device)
     if not launches:
         raise ValueError("execute() needs at least one launch")
-    mods = [_default_registry.as_module(l.code) for l in launches]
+    if shard_sm and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "execute(shard_sm=True) across several CUDA devices is not yet "
+            "ported (ROADMAP queue 1 item 9, multi-GPU shard_sm)")
+    if registry is None:       # an empty registry is falsy: test for None
+        registry = _default_registry
+    mods = [registry.as_module(l.code) for l in launches]
     code_len = max(m.padded_len for m in mods)
     codes = np.stack([reg.pad_code(m.code, code_len) for m in mods])
     orig_lens, pos_l, offsets, nblocks = [], [], [], []
@@ -284,12 +354,20 @@ def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
         pos_l.append(rows)
 
     g_width = reg.bucket_gmem_len(max(orig_lens))
-    gmems = torch.zeros((len(launches), g_width), dtype=torch.int32,
-                        device=dev)
+    gmems = torch.zeros((bucket_launches(len(launches)), g_width),
+                        dtype=torch.int32, device=dev)
     for i, launch in enumerate(launches):
         gmems[i, :orig_lens[i]] = as_int32(launch.gmem, dev)
 
-    n_warps = max(warps_for(l.block_dim) for l in launches)
+    warps_needed = max(warps_for(l.block_dim) for l in launches)
+    n_warps = pad_warps or warps_needed
+    if n_warps < warps_needed:
+        widest = max(int(np.prod(_norm_block_dim(l.block_dim)))
+                     for l in launches)
+        raise ValueError(
+            f"pad_warps={pad_warps} < {warps_needed} warps required by "
+            f"the widest launch ({widest} threads) — threads beyond the "
+            "padding would silently never run")
     geom = np.concatenate(pos_l)
     n_blocks = len(geom)
     # everything the group loop reads goes to the device once, here: the
@@ -320,8 +398,11 @@ _default_registry = ModuleRegistry(max_modules=1024)
 
 def run_grid(code, grid: Tuple[int, int], block_dim, gmem,
              cfg: MachineConfig = MachineConfig(), chunk: int = 8,
-             n_sm: int = 1, device="cuda") -> GridResult:
+             n_sm: int = 1, pad_warps: Optional[int] = None,
+             registry: Optional[ModuleRegistry] = None,
+             device="cuda") -> GridResult:
     """Single-launch entry: execute and materialize."""
     dg = execute([LaunchSpec(code, grid, block_dim, gmem)],
-                 n_sm=n_sm, cfg=cfg, chunk=chunk, device=device)
+                 n_sm=n_sm, cfg=cfg, chunk=chunk, pad_warps=pad_warps,
+                 registry=registry, device=device)
     return dg.to_results()[0]

@@ -388,3 +388,53 @@ def test_reduced_prefill_on_card(monkeypatch, card):
         for layer in range(spec.cfg.n_layers):
             err = (a[layer].float() - b[layer].float()).norm()
             assert err <= 2e-2 * b[layer].float().norm()
+
+
+@pytest.mark.parametrize("name", ["bitonic", "transpose", "reduction"])
+def test_reference_backend_on_card(card, name):
+    """The seed one-warp-per-issue interpreter on CUDA tensors: gmem and
+    every counter equal to "cuda_fused" on the card and to itself on the
+    CPU, and no kernel launched."""
+    mod = ALL[name]
+    code, (grid, bd) = mod.build(32), mod.launch(32)
+    g0 = mod.make_gmem(np.random.default_rng(12), 32)
+    ref = MachineConfig(execute_backend="reference")
+    _build.LAUNCHES.clear()
+    got = scheduler.run_grid(code, grid, bd, g0.copy(), ref, n_sm=2,
+                             device=card)
+    assert not _build.LAUNCHES
+    fused = scheduler.run_grid(code, grid, bd, g0.copy(), n_sm=2,
+                               device=card)
+    cpu = scheduler.run_grid(code, grid, bd, g0.copy(), ref, n_sm=2,
+                             device="cpu")
+    for want in (fused, cpu):
+        for f in want._fields:
+            np.testing.assert_array_equal(np.asarray(getattr(got, f)),
+                                          np.asarray(getattr(want, f)), f)
+
+
+def test_report_surface_on_card(card):
+    """pad_warps, shard_sm on one card, the bucketed gmem rows, the report
+    properties and to_results(host_gmem=False) on CUDA tensors, against
+    the same call on the CPU."""
+    specs = []
+    for i, name in enumerate(("autocorr", "transpose", "bitonic")):
+        mod = ALL[name]
+        specs.append(scheduler.LaunchSpec(
+            mod.build(32), *mod.launch(32),
+            mod.make_gmem(np.random.default_rng(30 + i), 32)))
+    kw = dict(n_sm=2, pad_warps=10, shard_sm=torch.cuda.device_count() == 1)
+    got = scheduler.execute(specs, device=card, **kw)
+    want = scheduler.execute(specs, device="cpu", **kw)
+    rep, wrep = got.report(), want.report()
+    assert rep.device_gmem_words == wrep.device_gmem_words == 4 * 2048
+    for f in ("kernel_cycles", "busy_cycles", "padded_gmem_words",
+              "occupancy", "n_steps", "n_blocks"):
+        assert getattr(rep, f) == getattr(wrep, f), f
+    dev = got.to_results(host_gmem=False)
+    for d, h in zip(dev, want.to_results()):
+        assert d.gmem.is_cuda
+        np.testing.assert_array_equal(d.gmem.cpu().numpy(), h.gmem)
+        np.testing.assert_array_equal(d.cycles_per_block, h.cycles_per_block)
+    with pytest.raises(ValueError, match="pad_warps"):
+        scheduler.execute(specs, pad_warps=4, device=card)

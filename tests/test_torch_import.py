@@ -28,7 +28,10 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.runtime.executor", "repro_torch.launch.serve",
             "repro_torch.models.transformer", "repro_torch.kernels.ops",
             "repro_torch.kernels.flash_attention",
-            "repro_torch.configs.qwen3_0p6b"} <= set(mods)
+            "repro_torch.configs.qwen3_0p6b", "repro_torch.core.energy",
+            "repro_torch.core.customize", "repro_torch.core.microblaze",
+            "repro_torch.core.pipeline.reference",
+            "repro_torch.configs.flexgrip"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

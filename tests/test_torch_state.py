@@ -53,8 +53,12 @@ def test_config_from_reference(backend, expect):
 
 
 def test_reference_backend_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tp.MachineConfig(execute_backend="reference")
+    """The seed interpreter is ported now: ``"reference"`` builds, and maps
+    from the JAX package's name; a JAX-only name still raises."""
+    cfg = tp.MachineConfig(execute_backend="reference")
+    assert cfg.execute_backend == "reference"
+    jcfg = jp.MachineConfig(execute_backend="reference")
+    assert ts.config_from_reference(dataclasses.asdict(jcfg)) == cfg
     with pytest.raises(ValueError):
         tp.MachineConfig(execute_backend="jnp")
 
