@@ -83,7 +83,28 @@ Phases, each printed as it ends:
 13. the ``"reference"`` backend (the seed one-warp-per-issue interpreter)
    on the card: ``REFERENCE_PROGRAMS`` at n=32 over two SMs, gmem and
    every counter equal to ``"cuda_fused"``, no kernel launched, and its
-   wall time.
+   wall time;
+14. the serving runtime (``[serve-overlay]``): the multi-tenant CLI
+   ``repro_torch.launch.gpgpu_serve.main --no-compiled`` on the card,
+   every result held to its oracle inside the CLI, every dispatch group
+   one ``fused_sm_run`` launch and each drain's launch count exactly the
+   executor's groups over its traced dispatch groups (the load test's
+   pool, whose oracle runs ``run_grid``, is built before the counting):
+   64 launches from 4 tenants on 8 SMs
+   under each of the five drain policies, with the executed per-SM cycles
+   equal to the analytical replay of each dispatch group; one 16-launch
+   drain equal to the same drain on the host CPU's plain path, every
+   ticket and every accounting field; the skewed workload's padded words
+   (56896 monolithic, 64 bucket) and the longtail's makespan (1456 bucket,
+   784 balanced); a ``--resident-gmem`` drain with no gmem crossing in a
+   ``TRANSFERS`` window; the five paper programs at n=256 from four
+   tenants on 8 SMs (matmul 83968 cycles a block); five bucket drains
+   with host memory and five resident, in turns (walls of submit + drain
+   and of the drain alone); one bucket drain's device time under
+   ``torch.profiler`` beside the same run's wall; and ``--loadgen
+   --loop --profile`` for 3 s (no unresolved launch, p50 / p99 latency,
+   energy above 0).  Each drain prints its launches/s, wall and
+   ``fused_sm_run`` launches beside the card's name and power limit.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are on the card named in the
@@ -94,7 +115,8 @@ back (``device_ms``); ``event_ms`` is the CUDA-event time of the same
 calls launched back to back on an idle device, which for a call shorter
 than its launch measures the host.  The fused kernel's time is device time
 less that of the snapshot copy each launch needs; serving times are host
-clocks around work that ends in a device sync.
+clocks around work that ends in a device sync (a drain's wall closes
+after its last counter fetch).
 """
 from __future__ import annotations
 
@@ -129,6 +151,8 @@ MATMUL_REPLACES = "src/repro/kernels/matmul.py:35"
 SERVE_ARGS = ["--arch", "qwen3-0.6b", "--batch", "4", "--gen", "32",
               "--seed", "0"]
 PROMPTS = (512, 200)
+#: the serving CLI's printed output in phase 14 (it is long)
+SERVE_LOG = ROOT / "build" / "serve" / "gpgpu_serve.log"
 #: the prefill with the flash kernel against the same step with the plain
 #: attention (``mha_ref`` in the flash wrapper's place).  The guard is the
 #: per-layer check: every layer's kernel output against the plain version
@@ -1418,6 +1442,229 @@ def phase_reference(launches, smi):
     return walls
 
 
+# ------------------------------------------------------------ phase 14
+SERVE_POLICIES = ("monolithic", "bucket", "fair", "balanced", "sla")
+#: the CLI's arguments for the policy drains: 64 launches of the five paper
+#: programs at the CLI's sizes, from 4 tenants on 8 SMs
+SERVE_DRAIN = ["--no-compiled", "--launches", "64", "--n-sm", "8",
+               "--tenants", "4"]
+#: drain accounting held equal between the card and the CPU plain path
+DRAIN_FIELDS = ("n_launches", "n_blocks", "n_steps", "n_windows",
+                "n_sub_batches", "useful_gmem_words", "padded_gmem_words",
+                "occupancy", "makespan_cycles", "busy_cycles", "n_shed")
+
+
+def counted_drains(launches, fn, n_sm, tag):
+    """Run ``fn`` with the launch counts at 0 and the tracer on: every
+    dispatch group it drained must have gone through ``fused_sm_run``, one
+    launch a group of the executor's ``group_bounds`` over the group's
+    blocks (the server's default chunk, ``max(2, n_sm)``), and nothing
+    else may have launched.  Returns ``fn``'s result, the fused launches
+    and each dispatch group's tickets."""
+    from repro_torch import obs
+    from repro_torch.runtime.executor import group_bounds
+    launches.clear()
+    obs.TRACER.clear().start()
+    try:
+        out = fn()
+    finally:
+        obs.TRACER.stop()
+    counts = dict(launches)
+    blocks = {sp.attrs["ticket"]: sp.attrs["n_blocks"]
+              for sp in obs.TRACER.find("submit") if "ticket" in sp.attrs}
+    groups = [sp.attrs["tickets"] for sp in obs.TRACER.find("dispatch")]
+    obs.TRACER.clear()
+    want = sum(len(group_bounds(sum(blocks[t] for t in g), n_sm,
+                                max(2, n_sm))) for g in groups)
+    if counts != {"fused_sm_run": want}:
+        raise AssertionError(f"{tag}: launched {counts}, want "
+                             f"{want} fused_sm_run for {len(groups)} "
+                             "dispatch groups")
+    return out, want, groups
+
+
+def serve_cli(launches, argv, tag, smi, n_sm, pool=None):
+    """One ``gpgpu_serve.main`` run on the card, counted by
+    :func:`counted_drains`.  Returns the CLI's result (DrainStats or
+    LoadReport) and the fused launches."""
+    from repro_torch.launch import gpgpu_serve
+
+    def run():
+        with open(SERVE_LOG, "a") as f, contextlib.redirect_stdout(f):
+            return gpgpu_serve.main(argv + ["--device", "cuda"], pool=pool)
+    out, n, _ = counted_drains(launches, run, n_sm, tag)
+    if hasattr(out, "n_sub_batches"):
+        log(f"[serve-overlay] {tag}: {out.n_launches} launches, "
+            f"{out.n_blocks} blocks, {out.n_sub_batches} sub-batches, "
+            f"{out.launches_per_s:.1f} launches/s, wall "
+            f"{out.wall_s * 1e3:.1f} ms, fused_sm_run {n}, padded "
+            f"{out.padded_gmem_words}, makespan {out.makespan_cycles}; "
+            f"{smi}")
+    return out, n
+
+
+def replay_per_sm(results, dispatches, n_sm):
+    """The analytical per-SM cycles of a drain: each dispatch group's
+    launches' blocks round-robin over the SMs, in the group's order."""
+    from repro_torch.runtime.executor import BLOCK_SCHED_OVERHEAD
+    total = np.zeros(n_sm, np.int64)
+    for tickets in dispatches:
+        cyc = np.concatenate([results[t].cycles_per_block for t in tickets])
+        total += np.bincount(np.arange(len(cyc)) % n_sm,
+                             weights=cyc + BLOCK_SCHED_OVERHEAD,
+                             minlength=n_sm).astype(np.int64)
+    return total
+
+
+def spread(xs):
+    """``min/median/max`` of ``xs`` seconds, in ms."""
+    ms = sorted(x * 1e3 for x in xs)
+    return f"{ms[0]:.1f}/{ms[len(ms) // 2]:.1f}/{ms[-1]:.1f}"
+
+
+def phase_serve_overlay(launches, smi):
+    """The serving runtime on the card through its CLI (docstring item
+    14).  Returns the fused launches of the phase's counted drains."""
+    from repro_torch import runtime as rt
+    from repro_torch.core.programs import ALL
+    from repro_torch.launch import gpgpu_serve
+    SERVE_LOG.parent.mkdir(parents=True, exist_ok=True)
+    SERVE_LOG.write_text("")
+    t_phase, fused = time.perf_counter(), 0
+    work64 = gpgpu_serve.build_workload(64, include_compiled=False)
+    for policy in SERVE_POLICIES:
+        st, n = serve_cli(launches, SERVE_DRAIN + ["--policy", policy],
+                          f"{policy} 64x", smi, 8)
+        fused += n
+        # the same drain through the CLI's drain function, so each dispatch
+        # group's tickets and results give the analytical replay
+        (srv, stats, _), n, groups = counted_drains(
+            launches, lambda: gpgpu_serve.drain_workload(
+                work64, 8, 4, policy, device="cuda"), 8, f"{policy} replay")
+        fused += n
+        want = replay_per_sm(srv.last_results, groups, 8)
+        if not np.array_equal(stats.per_sm_cycles, want):
+            raise AssertionError(f"{policy}: executed per-SM cycles "
+                                 f"{stats.per_sm_cycles} != replay {want}")
+        log(f"[serve-overlay] {policy}: per-SM cycles "
+            f"{stats.per_sm_cycles.tolist()} == analytical replay of "
+            f"{len(groups)} dispatch groups")
+    # bucket drains with and without resident memory, in turns: walls of
+    # submit + drain (drain_workload's) and of the drain alone (wall_s)
+    walls = {False: ([], []), True: ([], [])}
+    for _ in range(5):
+        for resident in (False, True):
+            _, stats, wall = gpgpu_serve.drain_workload(
+                work64, 8, 4, resident=resident, device="cuda")
+            walls[resident][0].append(wall)
+            walls[resident][1].append(stats.wall_s)
+    log("[serve-overlay] bucket 64x, 5 runs in turns, min/median/max ms: "
+        f"submit+drain {spread(walls[False][0])} host gmem against "
+        f"{spread(walls[True][0])} resident; drain alone "
+        f"{spread(walls[False][1])} against {spread(walls[True][1])}; {smi}")
+    # where a bucket drain's wall goes: device time and the host clock of
+    # one profiled run (the profiler's host cost lengthens that wall)
+    box = {}
+    dev_ms, n_kern, top = device_profile(lambda: box.update(
+        r=gpgpu_serve.drain_workload(work64, 8, 4, device="cuda")))
+    wall_ms = box["r"][2] * 1e3
+    log(f"[serve-overlay] bucket 64x under torch.profiler: {dev_ms:.2f} ms "
+        f"of device time in {n_kern} kernel launches, busy "
+        f"{dev_ms / wall_ms:.3f} of the same run's submit+drain wall "
+        f"{wall_ms:.1f} ms; top: {top}; {smi}")
+    # one 16-launch drain on the card against the plain path on the host
+    work = gpgpu_serve.build_workload(16, seed=5, include_compiled=False)
+    t0 = time.perf_counter()
+    cpu_srv, cpu_stats, _ = gpgpu_serve.drain_workload(work, 8, 4,
+                                                       device="cpu")
+    cpu_s = time.perf_counter() - t0
+    (srv, stats, _), n, _ = counted_drains(
+        launches, lambda: gpgpu_serve.drain_workload(work, 8, 4,
+                                                     device="cuda"),
+        8, "16-launch drain")
+    fused += n
+    for t, res in cpu_srv.last_results.items():
+        assert_same(srv.last_results[t], res, f"16-launch drain ticket {t}")
+    bad = [f for f in DRAIN_FIELDS
+           if getattr(stats, f) != getattr(cpu_stats, f)]
+    if bad or not np.array_equal(stats.per_sm_cycles,
+                                 cpu_stats.per_sm_cycles):
+        raise AssertionError(f"16-launch drain: card != CPU at {bad}")
+    log(f"[serve-overlay] 16-launch bucket drain on 8 SMs: every ticket "
+        f"and the drain's accounting == the plain path on the host CPU "
+        f"({cpu_s:.1f} s there, {stats.wall_s * 1e3:.1f} ms on the card, "
+        f"fused_sm_run {n})")
+    # the pinned accounting of the skewed and longtail workloads (2 SMs)
+    pinned = {("--skewed", "monolithic"): ("padded_gmem_words", 56896),
+              ("--skewed", "bucket"): ("padded_gmem_words", 64),
+              ("--longtail", "bucket"): ("makespan_cycles", 1456),
+              ("--longtail", "balanced"): ("makespan_cycles", 784)}
+    for (shape, policy), (field, value) in pinned.items():
+        st, n = serve_cli(launches, ["--no-compiled", shape, "--launches",
+                                     "8", "--policy", policy],
+                          f"{shape[2:]} {policy}", smi, 2)
+        fused += n
+        if getattr(st, field) != value:
+            raise AssertionError(f"{shape} {policy}: {field} "
+                                 f"{getattr(st, field)} != {value}")
+    # resident memory: no gmem crosses between host and card in the drain
+    w = rt.TRANSFERS.window()
+    st, n = serve_cli(launches, SERVE_DRAIN + ["--resident-gmem"],
+                      "resident 64x", smi, 8)
+    fused += n
+    if w.gmem_uploads or w.gmem_syncs or st.pool["host_syncs"]:
+        raise AssertionError(f"resident drain crossed: {w.snapshot()}, "
+                             f"pool {st.pool}")
+    log(f"[serve-overlay] resident: TRANSFERS {w.snapshot()} (gmem 0 up, "
+        f"0 back), pool {st.pool}")
+    # the five paper programs at the paper's largest size, four tenants
+    n = 256
+    work = [(name, ALL[name], n, ALL[name].build(n), ALL[name].launch(n),
+             ALL[name].make_gmem(np.random.default_rng(40 + i), n))
+            for i, name in enumerate(sorted(ALL))]
+    (srv, stats, _), n_fused, _ = counted_drains(
+        launches, lambda: gpgpu_serve.drain_workload(work, 8, 4,
+                                                     device="cuda"),
+        8, f"paper programs n={n}")
+    fused += n_fused
+    mm = [t for t, w_ in zip(sorted(srv.last_results), work)
+          if w_[0] == "matmul"][0]
+    if set(srv.last_results[mm].cycles_per_block.tolist()) != {83968}:
+        raise AssertionError("served matmul n=256: cycles a block != 83968")
+    log(f"[serve-overlay] paper programs n={n} from 4 tenants on 8 SMs: "
+        f"oracles ok, matmul 83968 cycles a block, {stats.n_blocks} blocks, "
+        f"{stats.launches_per_s:.1f} launches/s, wall "
+        f"{stats.wall_s * 1e3:.1f} ms, fused_sm_run {n_fused}, makespan "
+        f"{stats.makespan_cycles}; {smi}")
+    # the always-on loop under seeded open-loop load, profiled; its pool's
+    # oracle (one sequential run_grid an item) runs before the counting
+    launches.clear()
+    pool = gpgpu_serve.loadgen_pool(
+        gpgpu_serve.build_workload(16, include_compiled=False),
+        device="cuda")
+    n_oracle = launches["fused_sm_run"]
+    prof_out = SERVE_LOG.parent / "serve_profile.json"
+    rep, n = serve_cli(launches, [
+        "--no-compiled", "--launches", "16", "--n-sm", "8", "--tenants", "4",
+        "--loadgen", "--duration-s", "3", "--profile-out", str(prof_out)],
+        "loadgen", smi, 8, pool=pool)
+    fused += n
+    energy = json.loads(prof_out.read_text())["total"]["energy_eu"]
+    if rep.unresolved or rep.mismatched or rep.failed or not (energy > 0) \
+            or rep.completed == 0:
+        raise AssertionError(f"loadgen: {rep.as_dict()}, energy {energy}")
+    log(f"[serve-overlay] loadgen 3 s open loop: {rep.submitted} submitted, "
+        f"{rep.completed} completed, {rep.unresolved} unresolved, "
+        f"{rep.mismatched} mismatched, p50 {rep.p50_ms:.2f} ms, p99 "
+        f"{rep.p99_ms:.2f} ms, {rep.throughput_per_s:.1f} launches/s, "
+        f"{rep.loop_iterations} loop iterations, energy {energy:.0f} eu, "
+        f"fused_sm_run {n} (and {n_oracle} before it for the pool's "
+        f"oracle, not counted); {smi}")
+    log(f"[serve-overlay] phase wall {time.perf_counter() - t_phase:.1f} s, "
+        f"{fused} fused_sm_run launches; CLI output in {SERVE_LOG}")
+    return fused
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from the repository (src/repro_torch "
@@ -1460,9 +1707,12 @@ def main() -> int:
     paper32_launches, _ = phase_paper_n32(_build.LAUNCHES)
     paper256_launches, _, _ = phase_paper_n256(_build.LAUNCHES, smi)
     phase_reference(_build.LAUNCHES, smi)
+    serve_launches = phase_serve_overlay(_build.LAUNCHES, smi)
     kernels[1]["launches_by_path"] = {"main path (phase 6)": fused_launches,
                                       "paper tables n=32": paper32_launches,
-                                      "paper tables n=256": paper256_launches}
+                                      "paper tables n=256": paper256_launches,
+                                      "serving runtime (phase 14)":
+                                          serve_launches}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

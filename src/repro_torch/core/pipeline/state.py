@@ -109,11 +109,30 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def on_device(x, device: torch.device) -> bool:
+    """Whether ``x`` is a tensor on ``device`` (``cuda`` without an index
+    names the current card)."""
+    if not isinstance(x, torch.Tensor) or x.device.type != device.type:
+        return False
+    if device.type != "cuda":
+        return True
+    want = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return x.device.index == want
+
+
 def as_int32(x, device) -> torch.Tensor:
     """A numpy array, sequence or tensor as an int32 tensor on ``device``."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int32)
     return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+
+def host_numpy(x) -> np.ndarray:
+    """A numpy array, sequence or tensor (on any device) as host numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
 
 
 def config_from_reference(d: dict) -> MachineConfig:

@@ -33,8 +33,17 @@ is no jit-shape cache to feed, so the SM width is not padded to a bucket
 unless the caller asks (``pad_warps``), and a group's padding positions
 are not run; the per-SM accumulator is int64 rather than split hi/lo
 int32 lanes, so it has no blocks-per-SM bound.
-Sharding across devices (``shard_sm`` on more than one device),
-``TransferLog`` and the tracing spans wait.
+Sharding across devices (``shard_sm`` on more than one device) waits.
+
+Host<->device crossings are counted at the reference's three seams
+(``transfers.*`` in :data:`repro_torch.obs.METRICS`, viewed through
+:data:`TRANSFERS`): ``gmem_uploads`` where ``execute`` takes a launch
+memory that is not yet a tensor on its device, ``counter_syncs`` at the
+one counter fetch of a :class:`DeviceGrid`, ``gmem_syncs`` per launch
+materialized by ``to_results(host_gmem=True)``.  Each dispatch group runs
+in a ``"device-execute"`` span and the counter fetch in a
+``"counter-sync"`` span of :data:`repro_torch.obs.TRACER`; both are host
+bookkeeping and add no synchronizing call.
 """
 from __future__ import annotations
 
@@ -48,13 +57,72 @@ from ..core import isa
 from ..core.pipeline import MachineConfig
 from ..core.pipeline.fused import (C_CYCLES, C_STEPS, counters_from_rows,
                                    fused_sm_run, predecode, staged_run)
-from ..core.pipeline.state import as_int32, resolve_device
+from ..core.pipeline.state import as_int32, on_device, resolve_device
+from ..obs import METRICS, TRACER
 from . import registry as reg
 from .registry import Module, ModuleRegistry
 
 # Cycles the block scheduler spends dispatching one block (parameter pass,
 # register-file id init — §3.1 "initializes registers ... with thread IDs").
 BLOCK_SCHED_OVERHEAD = 24
+
+
+def _transfer(field: str) -> None:
+    """Count one host<->device crossing (``transfers.<field>`` counter)."""
+    METRICS.counter("transfers." + field).inc()
+
+
+class TransferLog:
+    """A *view* over the ``transfers.*`` registry counters, with the JAX
+    package's interface.
+
+    The executor's transfer counts — ``gmem_uploads`` (host memory
+    copied onto the device in :func:`execute`), ``gmem_syncs``
+    (per-launch gmem materializations in :meth:`DeviceGrid.to_results`
+    with ``host_gmem=True``) and ``counter_syncs`` (the one batched
+    accounting fetch in :meth:`DeviceGrid._host_fetch`) — live in
+    :data:`repro_torch.obs.METRICS` as ``transfers.*`` counters.  Each
+    view holds a per-field baseline: ``reset()`` re-bases it (the
+    counters are monotone and never rewind), and attribute reads return
+    *counter − baseline*.  :meth:`window` returns an independent
+    zero-based view — scoped measurement without moving the shared
+    ``TRANSFERS`` baseline other code may rely on.
+    """
+
+    _FIELDS = ("gmem_uploads", "gmem_syncs", "counter_syncs")
+
+    def __init__(self) -> None:
+        self._base = {f: 0 for f in self._FIELDS}
+        self.reset()
+
+    def _raw(self, field: str) -> int:
+        return METRICS.counter("transfers." + field).value
+
+    def __getattr__(self, name: str) -> int:
+        if name in self._FIELDS:
+            return self._raw(name) - self._base[name]
+        raise AttributeError(name)
+
+    def reset(self) -> "TransferLog":
+        """Re-base this view: all three fields read 0 until the next
+        crossing.  Registry counters are untouched."""
+        for f in self._FIELDS:
+            self._base[f] = self._raw(f)
+        return self
+
+    def window(self) -> "TransferLog":
+        """A fresh zero-based view over the same counters — the scoped
+        measurement idiom (``w = TRANSFERS.window(); ...; w.gmem_syncs``)
+        that cannot disturb other holders' baselines."""
+        return TransferLog()
+
+    def snapshot(self) -> dict:
+        return {f: getattr(self, f) for f in self._FIELDS}
+
+
+#: Process-wide transfer-counter view (see :class:`TransferLog`; the
+#: counters themselves live in ``repro_torch.obs.METRICS``).
+TRANSFERS = TransferLog()
 
 #: Launch-batch-width buckets: a drain of L concurrent launches pads its
 #: stacked gmem to the next bucket, as the JAX package does for its
@@ -188,8 +256,11 @@ class DeviceGrid:
     def _host_fetch(self) -> tuple:
         """Per-block counter rows and per-SM cycles, fetched once."""
         if self._host is None:
-            self._host = (self._ctr.cpu().numpy().astype(np.int64),
-                          self._sm_cyc.cpu().numpy())
+            _transfer("counter_syncs")
+            with TRACER.span("counter-sync", n_sm=self.n_sm,
+                             n_blocks=int(sum(self._blocks))):
+                self._host = (self._ctr.cpu().numpy().astype(np.int64),
+                              self._sm_cyc.cpu().numpy())
         return self._host
 
     def block_steps(self) -> np.ndarray:
@@ -223,8 +294,11 @@ class DeviceGrid:
         for i, (off, nb) in enumerate(zip(self._offsets, self._blocks)):
             sl = slice(off, off + nb)
             gmem = self.launch_gmem(i)
+            if host_gmem:
+                _transfer("gmem_syncs")
+                gmem = gmem.cpu().numpy()
             out.append(GridResult(
-                gmem=gmem.cpu().numpy() if host_gmem else gmem,
+                gmem=gmem,
                 cycles_per_block=c.cycles[sl],
                 op_issues=c.op_issues[sl].sum(0),
                 op_lanes=c.op_lanes[sl].sum(0),
@@ -286,20 +360,23 @@ def run_groups(cfg: MachineConfig, n_warps: int, n_sm: int, chunk: int,
     geometry and device tensors sliced from ``sched``."""
     sm_cyc = torch.zeros(n_sm, dtype=torch.int64, device=gmems.device)
     ctr_groups = []
+    bucket = f"c{codes.shape[1]}g{gmems.shape[1]}w{n_warps}sm{n_sm}"
     for lo, hi in group_bounds(len(sched.geom), n_sm, chunk):
         geom = sched.geom[lo:hi]
-        snap = gmems.index_select(0, sched.launch_ids[lo:hi])
-        if sched.records is None:
-            mem, wrt, ctr = staged_run(cfg, n_warps, codes, geom, snap)
-        else:
-            mem, wrt, ctr = fused_sm_run(
-                cfg, n_warps, codes, geom, snap, records=sched.records,
-                geom_dev=sched.geom_dev[lo:hi])
-        # position-order merge: later positions overwrite earlier ones
-        for p, li in enumerate(geom[:, 0].tolist()):
-            gmems[li] = torch.where(wrt[p], mem[p], gmems[li])
-        cost = ctr[:, C_CYCLES].to(torch.int64) + BLOCK_SCHED_OVERHEAD
-        sm_cyc.index_add_(0, sched.sm_ids[lo:hi], cost)
+        with TRACER.span("device-execute", bucket=bucket, width=hi - lo,
+                         n_blocks=hi - lo, n_sm=n_sm):
+            snap = gmems.index_select(0, sched.launch_ids[lo:hi])
+            if sched.records is None:
+                mem, wrt, ctr = staged_run(cfg, n_warps, codes, geom, snap)
+            else:
+                mem, wrt, ctr = fused_sm_run(
+                    cfg, n_warps, codes, geom, snap, records=sched.records,
+                    geom_dev=sched.geom_dev[lo:hi])
+            # position-order merge: later positions overwrite earlier ones
+            for p, li in enumerate(geom[:, 0].tolist()):
+                gmems[li] = torch.where(wrt[p], mem[p], gmems[li])
+            cost = ctr[:, C_CYCLES].to(torch.int64) + BLOCK_SCHED_OVERHEAD
+            sm_cyc.index_add_(0, sched.sm_ids[lo:hi], cost)
         ctr_groups.append(ctr)
     return torch.cat(ctr_groups), sm_cyc
 
@@ -357,7 +434,10 @@ def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
     gmems = torch.zeros((bucket_launches(len(launches)), g_width),
                         dtype=torch.int32, device=dev)
     for i, launch in enumerate(launches):
-        gmems[i, :orig_lens[i]] = as_int32(launch.gmem, dev)
+        g = launch.gmem
+        if not on_device(g, dev):
+            _transfer("gmem_uploads")        # host memory crossing over
+        gmems[i, :orig_lens[i]] = as_int32(g, dev)
 
     warps_needed = max(warps_for(l.block_dim) for l in launches)
     n_warps = pad_warps or warps_needed

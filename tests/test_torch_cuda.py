@@ -438,3 +438,78 @@ def test_report_surface_on_card(card):
         np.testing.assert_array_equal(d.cycles_per_block, h.cycles_per_block)
     with pytest.raises(ValueError, match="pad_warps"):
         scheduler.execute(specs, pad_warps=4, device=card)
+
+
+def _serving_work():
+    from repro_torch.launch.gpgpu_serve import build_workload
+    return build_workload(10, seed=3, include_compiled=False)
+
+
+def _drain(work, device, policy="bucket", resident=False):
+    from repro_torch import runtime as rt
+    srv = rt.RuntimeServer(n_sm=2, policy=policy, resident_gmem=resident,
+                           device=device)
+    tickets = [srv.submit(code, grid, bd, g0.copy(), client=f"t{i % 3}")
+               for i, (_, _, _, code, (grid, bd), g0) in enumerate(work)]
+    results, stats = srv.drain()
+    return [results[t] for t in tickets], stats
+
+
+@pytest.mark.parametrize("resident", [False, True])
+def test_server_drain_on_card_matches_cpu(card, resident):
+    """A bucket drain of the paper programs on the card: every ticket's
+    gmem and counters and the drain's accounting equal the same drain on
+    the CPU plain path; every dispatch group is one fused launch, and a
+    resident drain moves no gmem between host and card."""
+    from repro_torch import runtime as rt
+    work = _serving_work()
+    want, wstats = _drain(work, "cpu")
+    _build.LAUNCHES.clear()
+    w = rt.TRANSFERS.window()
+    got, stats = _drain(work, card, resident=resident)
+    assert _build.LAUNCHES["fused_sm_run"] >= stats.n_sub_batches > 0
+    assert set(_build.LAUNCHES) == {"fused_sm_run"}
+    if resident:
+        assert w.gmem_syncs == 0
+        assert w.gmem_uploads == 0     # adopted at submit, inside window
+        assert stats.pool["host_uploads"] == len(work)
+    for g, h in zip(got, want):
+        assert isinstance(g.gmem, torch.Tensor) == resident
+        for f in h._fields:
+            np.testing.assert_array_equal(
+                g.gmem.cpu().numpy() if f == "gmem" and resident
+                else np.asarray(getattr(g, f)), np.asarray(getattr(h, f)), f)
+    for f in ("n_blocks", "n_steps", "n_sub_batches", "padded_gmem_words",
+              "makespan_cycles", "busy_cycles"):
+        assert getattr(stats, f) == getattr(wstats, f), f
+    np.testing.assert_array_equal(stats.per_sm_cycles, wstats.per_sm_cycles)
+
+
+def test_serving_loop_and_stream_events_on_card(card):
+    """The loop's thread drains on the card; a Runtime stream's launch is
+    done once its CUDA event has completed, and a second stream waits on
+    the first's event."""
+    from repro_torch import runtime as rt
+    mod = ALL["reduction"]
+    code, (grid, bd) = mod.build(32), mod.launch(32)
+    g0 = mod.make_gmem(np.random.default_rng(0), 32)
+    want = scheduler.run_grid(code, grid, bd, g0.copy(), device="cpu")
+    srv = rt.RuntimeServer(n_sm=2, device=card)
+    with rt.ServingLoop(srv, poll_interval_s=0.002) as loop:
+        futs = [loop.submit(code, grid, bd, g0.copy()) for _ in range(4)]
+        loop.quiesce()
+    for f in futs:
+        np.testing.assert_array_equal(f.result().gmem, want.gmem)
+    runtime = rt.Runtime(n_sm=2, device=card)
+    s1 = runtime.stream(g0)
+    l1 = s1.launch(code, grid, bd)
+    ev = s1.record_event()
+    s2 = runtime.stream()
+    s2.wait_event(ev)
+    l2 = s2.launch(code, grid, bd, gmem=ev)
+    l2.wait()
+    assert l1.done() and l2.done() and ev.query()
+    np.testing.assert_array_equal(l1.result().gmem, want.gmem)
+    twice = scheduler.run_grid(code, grid, bd, want.gmem.copy(),
+                               device="cpu")
+    np.testing.assert_array_equal(l2.result().gmem, twice.gmem)

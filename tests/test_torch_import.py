@@ -31,7 +31,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.configs.qwen3_0p6b", "repro_torch.core.energy",
             "repro_torch.core.customize", "repro_torch.core.microblaze",
             "repro_torch.core.pipeline.reference",
-            "repro_torch.configs.flexgrip"} <= set(mods)
+            "repro_torch.configs.flexgrip", "repro_torch.obs",
+            "repro_torch.obs.metrics", "repro_torch.obs.trace",
+            "repro_torch.obs.profile", "repro_torch.runtime.policy",
+            "repro_torch.runtime.stream", "repro_torch.runtime.server",
+            "repro_torch.runtime.service", "repro_torch.runtime.loadgen",
+            "repro_torch.launch.gpgpu_serve"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -102,3 +107,17 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
         serve.main(["--reduced", "--gen", "1", "--prompt-len", "4"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.decode_state(spec, 1, 8)
+
+
+def test_serving_entry_points_raise_without_a_card(monkeypatch):
+    """The serving runtime and its CLI default to the card too."""
+    from repro_torch import runtime as rt
+    from repro_torch.launch import gpgpu_serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (rt.RuntimeServer, rt.Runtime, rt.GmemPool):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpgpu_serve.main(["--no-compiled", "--launches", "1"])
+    srv = rt.RuntimeServer(device="cpu")        # asked for the CPU: runs
+    assert srv.device.type == "cpu" and srv.gmem_pool.device.type == "cpu"
