@@ -104,7 +104,30 @@ Phases, each printed as it ends:
    ``torch.profiler`` beside the same run's wall; and ``--loadgen
    --loop --profile`` for 3 s (no unresolved launch, p50 / p99 latency,
    energy above 0).  Each drain prints its launches/s, wall and
-   ``fused_sm_run`` launches beside the card's name and power limit.
+   ``fused_sm_run`` launches beside the card's name and power limit;
+15. the kernel compiler's binaries on the card (``[compile]``):
+   ``repro_torch.launch.gpgpu_compile.main(["--all", "--no-ir", "--run",
+   "-n", N])`` for N in {64, 256}, each binary held to its oracle inside
+   the CLI and its compile line (naive -> optimized instructions) equal
+   to the JAX CLI's (``PINNED_COMPILE``), histogram's two passes held to
+   ``final_oracle``; at n=64 the optimized and the naive binary of each
+   kernel on the card equal to the CPU plain path, every counter, with
+   equal outputs and both cycle totals printed; histogram n=16384 (two
+   passes) and spmv n=4096 (128 blocks each) on 1, 2 and 8 SMs, held to
+   the oracles and each pass's executed per-SM cycles to the replay;
+   scan n=64 on ``customize.minimal_config`` (a one-entry warp stack, no
+   multiplier) with ``max_sp`` and ``stack_ops`` 0; scan and spmv through
+   the staged ``"cuda"`` backend, equal to the CPU, one ``simt_alu``
+   launch a group step.  Every run launches exactly the executor's
+   groups of ``fused_sm_run`` (or its steps of ``simt_alu``) and nothing
+   else;
+16. the mixed serving workload with its compiled tenants
+   (``[serve-mixed]``): ``gpgpu_serve.main`` without ``--no-compiled``, 64
+   launches of the eight kernels from 4 tenants on 8 SMs under each of the
+   five policies, counted and replayed as in phase 14; one 16-launch mixed
+   drain equal to the CPU plain path; the build attribution of a drain
+   from cleared caches (misses in the 64- and the 96-instruction code
+   buckets) and of the same drain again (no miss).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are on the card named in the
@@ -121,7 +144,9 @@ after its last counter fetch).
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1483,7 +1508,8 @@ def counted_drains(launches, fn, n_sm, tag):
     return out, want, groups
 
 
-def serve_cli(launches, argv, tag, smi, n_sm, pool=None):
+def serve_cli(launches, argv, tag, smi, n_sm, pool=None,
+              prefix="[serve-overlay]"):
     """One ``gpgpu_serve.main`` run on the card, counted by
     :func:`counted_drains`.  Returns the CLI's result (DrainStats or
     LoadReport) and the fused launches."""
@@ -1494,7 +1520,7 @@ def serve_cli(launches, argv, tag, smi, n_sm, pool=None):
             return gpgpu_serve.main(argv + ["--device", "cuda"], pool=pool)
     out, n, _ = counted_drains(launches, run, n_sm, tag)
     if hasattr(out, "n_sub_batches"):
-        log(f"[serve-overlay] {tag}: {out.n_launches} launches, "
+        log(f"{prefix} {tag}: {out.n_launches} launches, "
             f"{out.n_blocks} blocks, {out.n_sub_batches} sub-batches, "
             f"{out.launches_per_s:.1f} launches/s, wall "
             f"{out.wall_s * 1e3:.1f} ms, fused_sm_run {n}, padded "
@@ -1665,6 +1691,282 @@ def phase_serve_overlay(launches, smi):
     return fused
 
 
+# ------------------------------------------------------------ phase 15
+#: the JAX CLI's compile lines (``python -m repro.launch.gpgpu_compile --all
+#: --no-ir -n N``): kernel -> (naive, optimized, saved, saving %)
+PINNED_COMPILE = {
+    64: {"histogram": (43, 26, 17, 40), "scan": (29, 27, 2, 7),
+         "spmv": (21, 20, 1, 5)},
+    256: {"histogram": (43, 31, 12, 28), "scan": (29, 27, 2, 7),
+          "spmv": (21, 20, 1, 5)}}
+COMPILE_LINE = re.compile(r"\[compile\] (\w+): (\d+) naive -> (\d+) optimized "
+                          r"instructions \((\d+) saved, (\d+)%\), (\d+) ms$")
+#: the multi-block grids of phase 15: histogram 128 blocks of 64 threads
+#: (chunk 128) through its two passes, spmv 128 blocks of 32 rows
+MULTI_BLOCK = (("histogram", 16384), ("spmv", 4096))
+
+
+def grid_groups(n_blocks, n_sm):
+    """``fused_sm_run`` launches of one ``execute`` (chunk 8): one a
+    dispatch group."""
+    from repro_torch.runtime.executor import group_bounds
+    return len(group_bounds(n_blocks, n_sm, 8))
+
+
+def n_blocks(mod, n):
+    (gx, gy), _ = mod.launch(n)
+    return gx * gy
+
+
+def counted(launches, fn, want, tag):
+    """``fn()`` with the launch counts at 0: it must have launched exactly
+    ``want`` (a dict), and nothing else."""
+    launches.clear()
+    out = fn()
+    if dict(launches) != want:
+        raise AssertionError(f"{tag}: launched {dict(launches)}, want {want}")
+    return out
+
+
+def phase_compile(launches, smi):
+    """The kernel compiler's binaries on the card (docstring item 15).
+    Returns (fused_sm_run launches, simt_alu launches) of the phase."""
+    from repro_torch.compiler.kernels import COMPILED, histogram
+    from repro_torch.core import customize, scheduler
+    from repro_torch.core.machine import MachineConfig
+    from repro_torch.launch import gpgpu_compile
+    t_phase, fused, alu = time.perf_counter(), 0, 0
+    # the CLI, each binary held to its oracle inside it
+    for n in (64, 256):
+        buf = io.StringIO()
+        want = sum(grid_groups(n_blocks(COMPILED[k], n), 1) for k in COMPILED)
+
+        def cli():
+            with contextlib.redirect_stdout(buf):
+                return gpgpu_compile.main(["--all", "--no-ir", "--run", "-n",
+                                           str(n), "--device", "cuda"])
+        t0 = time.perf_counter()
+        rc = counted(launches, cli, {"fused_sm_run": want}, f"compile n={n}")
+        wall = time.perf_counter() - t0
+        fused += want
+        out = buf.getvalue().splitlines()
+        got = {m[1]: tuple(int(x) for x in m.groups()[1:5])
+               for m in map(COMPILE_LINE.match, out) if m}
+        ms = {m[1]: int(m[6]) for m in map(COMPILE_LINE.match, out) if m}
+        ran = [l for l in out if " ran " in l and l.endswith("oracle OK")]
+        if rc != 0 or got != PINNED_COMPILE[n] or len(ran) != len(COMPILED):
+            raise AssertionError(f"gpgpu_compile n={n}: rc {rc}, compile "
+                                 f"lines {got} != {PINNED_COMPILE[n]}, ran "
+                                 f"{ran}")
+        log(f"[compile] n={n}: compile lines == the JAX CLI's {got}; compile "
+            f"ms on the host CPU {ms}; " + "; ".join(
+                l.split(": ", 1)[1] for l in ran)
+            + f"; CLI wall {wall:.2f} s, fused_sm_run {want}; {smi}")
+        # histogram's two passes, reduced bins held to the final oracle
+        g0 = histogram.make_gmem(np.random.default_rng(0), n)
+        gm, _ = counted(launches, lambda: histogram.run_passes(
+            partial(scheduler.run_grid, device="cuda"), histogram.build(n), n,
+            g0.copy()), {"fused_sm_run": grid_groups(n_blocks(histogram, n),
+                                                     1) + 1},
+            f"histogram two passes n={n}")
+        fused += launches["fused_sm_run"]
+        if not np.array_equal(gm[histogram.final_slice(n)],
+                              histogram.final_oracle(g0, n)):
+            raise AssertionError(f"histogram n={n}: reduced bins differ")
+    # n=64: optimized and naive binaries on the card == the CPU plain path
+    n, cycles = 64, {}
+    cpu = MachineConfig(execute_backend="torch")
+    for name in sorted(COMPILED):
+        mod = COMPILED[name]
+        g0 = mod.make_gmem(np.random.default_rng(7), n)
+        outs = {}
+        for variant in ("optimized", "naive"):
+            code = mod.build(n, optimize=variant == "optimized")
+            plain = scheduler.run_grid(code, *mod.launch(n), g0.copy(), cpu,
+                                       device="cpu")
+            card = counted(launches, lambda: scheduler.run_grid(
+                code, *mod.launch(n), g0.copy(), device="cuda"),
+                {"fused_sm_run": grid_groups(n_blocks(mod, n), 1)},
+                f"{name} {variant}")
+            fused += launches["fused_sm_run"]
+            assert_same(card, plain, f"{name} n={n} {variant} card vs CPU")
+            check_grid(mod, n, g0, card, f"{name} n={n} {variant}")
+            outs[variant] = card.gmem[mod.out_slice(n)]
+            cycles[name, variant] = int(card.cycles_per_block.sum())
+        if not np.array_equal(outs["optimized"], outs["naive"]):
+            raise AssertionError(f"{name}: naive and optimized outputs differ")
+    log(f"[compile] n={n}: optimized and naive binaries on the card == the "
+        "plain path on the host CPU, every counter; cycles optimized/naive: "
+        + ", ".join(f"{k} {cycles[k, 'optimized']}/{cycles[k, 'naive']}"
+                    for k in sorted(COMPILED)))
+    # multi-block grids on 1, 2 and 8 SMs, held to the oracle and the replay
+    for name, n in MULTI_BLOCK:
+        mod = COMPILED[name]
+        g0 = mod.make_gmem(np.random.default_rng(11), n)
+        for n_sm in (1, 2, 8):
+            passes = []
+
+            def run(code, grid, bd, gmem, _passes=passes, _n_sm=n_sm):
+                dg = scheduler.execute(
+                    [scheduler.LaunchSpec(code, grid, bd, gmem)], n_sm=_n_sm,
+                    device="cuda")
+                res, per_sm = dg.to_results()[0], dg.report().per_sm_cycles
+                if not (np.array_equal(per_sm, res.per_sm_cycles(_n_sm))
+                        and per_sm.max() == res.sm_cycles(_n_sm)):
+                    raise AssertionError(f"{name} n={n} n_sm={_n_sm}: "
+                                         "executed per-SM cycles != replay")
+                _passes.append((res, grid_groups(grid[0] * grid[1], _n_sm)))
+                return res
+            launches.clear()
+            t0 = time.perf_counter()
+            if name == "histogram":
+                gm, _ = histogram.run_passes(run, mod.build(n), n, g0.copy())
+                ok = np.array_equal(gm[histogram.final_slice(n)],
+                                    histogram.final_oracle(g0, n))
+            else:
+                gm = run(mod.build(n), *mod.launch(n), g0.copy()).gmem
+                ok = True
+            wall = time.perf_counter() - t0
+            want = sum(g for _, g in passes)
+            if dict(launches) != {"fused_sm_run": want}:
+                raise AssertionError(f"{name} n={n} n_sm={n_sm}: launched "
+                                     f"{dict(launches)}, want {want}")
+            fused += want
+            if not ok or not np.array_equal(
+                    passes[0][0].gmem[mod.out_slice(n)], mod.oracle(g0, n)):
+                raise AssertionError(f"{name} n={n} n_sm={n_sm}: oracle")
+            log(f"[compile] {name} n={n} ({n_blocks(mod, n)} blocks) n_sm="
+                f"{n_sm}: oracle ok, per-SM cycles "
+                f"{passes[0][0].per_sm_cycles(n_sm).tolist()} == replay "
+                f"(kernel time {passes[0][0].sm_cycles(n_sm)}), wall "
+                f"{wall * 1e3:.1f} ms, fused_sm_run {want}; {smi}")
+    # scan on the smallest machine the customization analyzer allows
+    mod, n = COMPILED["scan"], 64
+    code = mod.build(n)
+    small = customize.minimal_config(code)
+    g0 = mod.make_gmem(np.random.default_rng(0), n)
+    card = counted(launches, lambda: scheduler.run_grid(
+        code, *mod.launch(n), g0.copy(), small, device="cuda"),
+        {"fused_sm_run": 1}, "scan minimal config")
+    fused += 1
+    plain = scheduler.run_grid(code, *mod.launch(n), g0.copy(),
+                               replace(small, execute_backend="torch"),
+                               device="cpu")
+    assert_same(card, plain, "scan minimal config card vs CPU")
+    check_grid(mod, n, g0, card, "scan minimal config")
+    if card.max_sp or card.stack_ops or small.warp_stack_depth != 1:
+        raise AssertionError(f"if-converted scan used the warp stack: "
+                             f"max_sp {card.max_sp}, {card.stack_ops} ops")
+    log(f"[compile] scan n={n} on warp_stack_depth={small.warp_stack_depth}, "
+        f"enable_mul={small.enable_mul}: max_sp 0, stack_ops 0, oracle ok, "
+        "== CPU")
+    # the staged "cuda" backend: simt_alu in the pipeline
+    cfg = MachineConfig(execute_backend="cuda")
+    for name in ("scan", "spmv"):
+        mod = COMPILED[name]
+        code, g0 = mod.build(n), mod.make_gmem(np.random.default_rng(5), n)
+        spec = [scheduler.LaunchSpec(code, *mod.launch(n), g0.copy())]
+        plain_dg = scheduler.execute(spec, cfg=cfg, device="cpu")
+        want = staged_launches_expected(plain_dg, 1)
+        card = counted(launches, lambda: scheduler.run_grid(
+            code, *mod.launch(n), g0.copy(), cfg, device="cuda"),
+            {"simt_alu": want}, f"staged cuda {name}")
+        alu += want
+        assert_same(card, plain_dg.to_results()[0], f"staged cuda {name}")
+        log(f"[compile] staged cuda {name} n={n}: == CPU, simt_alu {want} == "
+            "the group steps")
+    log(f"[compile] phase wall {time.perf_counter() - t_phase:.1f} s, "
+        f"fused_sm_run {fused}, simt_alu {alu}; {smi}")
+    return fused, alu
+
+
+# ------------------------------------------------------------ phase 16
+#: the mixed workload's policy drains: 64 launches of the eight kernels at
+#: the CLI's sizes, from 4 tenants on 8 SMs
+MIXED_DRAIN = ["--launches", "64", "--n-sm", "8", "--tenants", "4"]
+
+
+def phase_serve_mixed(launches, smi):
+    """The mixed serving workload with its compiled tenants (docstring
+    item 16).  Returns the fused launches of the phase's counted drains."""
+    from repro_torch import obs
+    from repro_torch import runtime as rt
+    from repro_torch.launch import gpgpu_serve
+    t_phase, fused = time.perf_counter(), 0
+    work64 = gpgpu_serve.build_workload(64)
+    for policy in SERVE_POLICIES:
+        st, n = serve_cli(launches, MIXED_DRAIN + ["--policy", policy],
+                          f"{policy} 64x", smi, 8, prefix="[serve-mixed]")
+        fused += n
+        (srv, stats, _), n, groups = counted_drains(
+            launches, lambda: gpgpu_serve.drain_workload(
+                work64, 8, 4, policy, device="cuda"), 8,
+            f"mixed {policy} replay")
+        fused += n
+        want = replay_per_sm(srv.last_results, groups, 8)
+        if not np.array_equal(stats.per_sm_cycles, want):
+            raise AssertionError(f"mixed {policy}: executed per-SM cycles "
+                                 f"{stats.per_sm_cycles} != replay {want}")
+        log(f"[serve-mixed] {policy}: {stats.n_launches} launches, "
+            f"{stats.launches_per_s:.1f} launches/s, drain wall "
+            f"{stats.wall_s * 1e3:.1f} ms, fused_sm_run {n} over "
+            f"{len(groups)} dispatch groups, per-SM cycles == replay; {smi}")
+    # one 16-launch mixed drain on the card against the host CPU
+    work = gpgpu_serve.build_workload(16, seed=5)
+    t0 = time.perf_counter()
+    cpu_srv, cpu_stats, _ = gpgpu_serve.drain_workload(work, 8, 4,
+                                                       device="cpu")
+    cpu_s = time.perf_counter() - t0
+    (srv, stats, _), n, _ = counted_drains(
+        launches, lambda: gpgpu_serve.drain_workload(work, 8, 4,
+                                                     device="cuda"),
+        8, "mixed 16-launch drain")
+    fused += n
+    for t, res in cpu_srv.last_results.items():
+        assert_same(srv.last_results[t], res, f"mixed 16-launch ticket {t}")
+    bad = [f for f in DRAIN_FIELDS
+           if getattr(stats, f) != getattr(cpu_stats, f)]
+    if bad or not np.array_equal(stats.per_sm_cycles,
+                                 cpu_stats.per_sm_cycles):
+        raise AssertionError(f"mixed 16-launch drain: card != CPU at {bad}")
+    log(f"[serve-mixed] 16-launch drain on 8 SMs: every ticket and the "
+        f"drain's accounting == the plain path on the host CPU ({cpu_s:.1f} "
+        f"s there, {stats.wall_s * 1e3:.1f} ms on the card, fused_sm_run "
+        f"{n})")
+    # build attribution: a drain from cleared caches misses in both code
+    # buckets; the same drain again, caches kept, misses nowhere
+    (srv, stats, wall), n, _ = counted_drains(
+        launches, lambda: gpgpu_serve.drain_workload(work64, 8, 4,
+                                                     device="cuda"),
+        8, "mixed attribution drain")
+    fused += n
+    jit = gpgpu_serve.metrics_document(srv)["jit"]
+    buckets = sorted(b for b in jit if b != "_total")
+    if not {"c64", "c96"} <= {b.split("g")[0] for b in buckets}:
+        raise AssertionError(f"first mixed drain's jit misses {jit}")
+
+    def again():
+        before = obs.jit_summary()
+        srv2 = rt.RuntimeServer(n_sm=8, metrics=obs.MetricsRegistry(),
+                                device="cuda")
+        for i, (_, _, _, code, (grid, bd), g0) in enumerate(work64):
+            srv2.submit(code, grid, bd, g0.copy(), client=f"tenant{i % 4}")
+        srv2.drain()
+        return obs.jit_delta(before, obs.jit_summary())
+    second, n, _ = counted_drains(launches, again, 8, "mixed second drain")
+    fused += n
+    if set(second) != {"_total"} or second["_total"]["jit_cache_misses"]:
+        raise AssertionError(f"second mixed drain missed: {second}")
+    log(f"[serve-mixed] build attribution, first drain: " + ", ".join(
+        f"{b} {jit[b]['jit_cache_misses']} misses "
+        f"{jit[b]['jit_trace_ms']:.1f} ms" for b in buckets)
+        + f" ({jit['_total']['jit_cache_hits']} hits); second drain, caches "
+        f"kept: 0 misses, {second['_total']['jit_cache_hits']} hits; {smi}")
+    log(f"[serve-mixed] phase wall {time.perf_counter() - t_phase:.1f} s, "
+        f"{fused} fused_sm_run launches; CLI output in {SERVE_LOG}")
+    return fused
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from the repository (src/repro_torch "
@@ -1708,11 +2010,20 @@ def main() -> int:
     paper256_launches, _, _ = phase_paper_n256(_build.LAUNCHES, smi)
     phase_reference(_build.LAUNCHES, smi)
     serve_launches = phase_serve_overlay(_build.LAUNCHES, smi)
+    compile_fused, compile_alu = phase_compile(_build.LAUNCHES, smi)
+    mixed_launches = phase_serve_mixed(_build.LAUNCHES, smi)
+    kernels[0]["launches_by_path"] = {"staged path (phase 5)": alu_launches,
+                                      "compiled binaries (phase 15)":
+                                          compile_alu}
     kernels[1]["launches_by_path"] = {"main path (phase 6)": fused_launches,
                                       "paper tables n=32": paper32_launches,
                                       "paper tables n=256": paper256_launches,
                                       "serving runtime (phase 14)":
-                                          serve_launches}
+                                          serve_launches,
+                                      "compiled binaries (phase 15)":
+                                          compile_fused,
+                                      "mixed serving (phase 16)":
+                                          mixed_launches}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .. import isa
+from ...obs import jit_call
 from .state import (EXECUTE_BACKENDS, FINISHED, READY, WAIT, Counters,
                     MachineConfig, SMState, _pack, _unpack, as_int32,
                     clamp_index, init_state, resolve_device, select_state)
@@ -143,12 +144,14 @@ def run_block(code, block_dim, block_xy, grid_xy, gmem,
     bdx, bdy = int(bdx), int(bdy)
     code, gmem = as_int32(code, dev), as_int32(gmem, dev)
     n_warps = -(-bdx * bdy // isa.WARP_SIZE)
-    if cfg.execute_backend == "cuda_fused":
-        geom = [[0, bdx * bdy, bdx, bdy, *block_xy, *grid_xy]]
-        mem, wrt, ctr = fused.fused_sm_run(cfg, n_warps, code[None], geom,
-                                           gmem[None].clone())
-        c = fused.counters_from_rows(ctr)
-        return mem[0], wrt[0], Counters(*(x[0] for x in c))
-    return run_block_body(cfg, n_warps, code, bdx * bdy, (bdx, bdy),
-                          tuple(int(v) for v in block_xy),
-                          tuple(int(v) for v in grid_xy), gmem)
+    bucket = f"c{code.shape[0]}g{gmem.shape[0]}b{bdx * bdy}"
+    with jit_call("pipeline.run_block", bucket=bucket):
+        if cfg.execute_backend == "cuda_fused":
+            geom = [[0, bdx * bdy, bdx, bdy, *block_xy, *grid_xy]]
+            mem, wrt, ctr = fused.fused_sm_run(cfg, n_warps, code[None],
+                                               geom, gmem[None].clone())
+            c = fused.counters_from_rows(ctr)
+            return mem[0], wrt[0], Counters(*(x[0] for x in c))
+        return run_block_body(cfg, n_warps, code, bdx * bdy, (bdx, bdy),
+                              tuple(int(v) for v in block_xy),
+                              tuple(int(v) for v in grid_xy), gmem)

@@ -13,8 +13,7 @@ module exposes:
   ``n_threads(n) -> int``             total threads launched (scalar model)
 
 Every kernel is padded to PROGRAM_PAD instructions, so all five share one
-code-length bucket.  The DSL-compiled kernels (``compiled_kernels()`` in
-the JAX package) wait for the compiler's port.
+code-length bucket.
 """
 from . import autocorr, bitonic, matmul, reduction, transpose
 
@@ -27,3 +26,13 @@ ALL = {
     "reduction": reduction,
     "transpose": transpose,
 }
+
+
+def compiled_kernels():
+    """The DSL-compiled kernel modules (histogram, scan, spmv) — same
+    ``build/launch/make_gmem/oracle/out_slice/n_threads`` interface as
+    the hand-written five, but authored in the ``repro_torch.compiler``
+    front end and compiled at build() time.  Imported lazily so ``core``
+    has no hard dependency on the compiler layer."""
+    from ...compiler.kernels import COMPILED
+    return dict(COMPILED)

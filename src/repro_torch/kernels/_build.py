@@ -13,6 +13,9 @@ Nothing here runs at import time: the CPU tests import every module of
 the port on a host without ``nvcc``.  A failed build raises; no caller
 falls back to a plain version on CUDA tensors.
 
+Each load of the library adds one to ``obs.jitprof.LIBRARY_LOADS``, so
+build attribution charges it to the call that needed it.
+
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its path
 went through the kernels.  ``VARIANTS`` counts the same launches by
@@ -32,6 +35,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..obs.jitprof import LIBRARY_LOADS
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -135,6 +140,7 @@ def load() -> ctypes.CDLL:
         lib.matmul_launch.argtypes = [p] * 3 + [i] * 5 + [p]
         lib.matmul_launch.restype = i
         _lib = lib
+        LIBRARY_LOADS.inc()
     return _lib
 
 

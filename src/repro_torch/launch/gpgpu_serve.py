@@ -1,13 +1,15 @@
 """Multi-tenant soft-GPGPU serving driver (port of
 ``repro.launch.gpgpu_serve``).
 
-    PYTHONPATH=src python -m repro_torch.launch.gpgpu_serve --no-compiled \
+    PYTHONPATH=src python -m repro_torch.launch.gpgpu_serve \
         --launches 16 --n-sm 2 --tenants 4 [--device cpu] \
         [--policy bucket|fair|monolithic|balanced|sla] \
         [--skewed | --longtail] [--baseline]
 
-Simulated tenants submit a mixed workload — the five paper kernels at
-several input sizes — to the device runtime's launch queue
+Simulated tenants submit a mixed workload — the five paper kernels
+plus the DSL-compiled histogram / prefix-scan / ELL-SpMV kernels
+(``repro_torch.compiler``), at several input sizes — to the device
+runtime's launch queue
 (:class:`repro_torch.runtime.RuntimeServer`), whose drain policy cuts each
 window of pending launches into SM-packed dispatch groups on one
 compiled machine: the overlay property ("new CUDA binary, no FPGA
@@ -24,11 +26,8 @@ one sequential ``run_grid`` call per launch and reports the throughput
 ratio.
 
 It runs on the card unless ``--device cpu``: every dispatch group is then
-one launch of the fused SM kernel (``fused_sm_run``).  The JAX package's
-mixed workload also draws the DSL-compiled histogram / prefix-scan /
-ELL-SpMV kernels (``repro.compiler``); the port has no compiler yet, so
-the mixed workload needs ``--no-compiled`` and raises without it rather
-than drop those tenants (``--skewed`` and ``--longtail`` use none).
+one launch of the fused SM kernel (``fused_sm_run``).  ``--no-compiled``
+serves the five paper kernels alone.
 
 ``--loop`` serves through a background
 :class:`~repro_torch.runtime.ServingLoop` (continuous drain) instead of one
@@ -36,9 +35,9 @@ explicit drain; ``--loadgen`` drives the loop with the seeded open-loop
 generator (Poisson / ``--bursty`` ON-OFF tenants at ``--rate`` over
 ``--duration-s``), with ``--sla tenant=weight`` switching to
 SLA-weighted fair scheduling and ``--deadline-s`` shedding launches
-that outstay their latency budget — see ``docs/serving.md``.  The port
-has no jit caches to clear between runs: its kernels are built once, by
-``kernels/_build.py``, before the first launch.
+that outstay their latency budget — see ``docs/serving.md``.  Each drain
+starts with the executor's predecode cache cleared (where the JAX CLI
+clears its jit caches), so its build attribution shows its own misses.
 """
 from __future__ import annotations
 
@@ -52,7 +51,8 @@ from repro_torch import obs
 from repro_torch import runtime as rt
 from repro_torch.core import asm, isa, scheduler
 from repro_torch.core.pipeline.state import host_numpy, resolve_device
-from repro_torch.core.programs import ALL
+from repro_torch.core.programs import ALL, compiled_kernels
+from repro_torch.runtime import executor
 
 #: per-kernel tenant input sizes (reduction stays single-pass; the
 #: DSL-compiled kernels ride along with their own geometries and
@@ -65,17 +65,11 @@ SIZES = {"autocorr": (32, 64, 128), "bitonic": (32, 64, 128),
 
 def workload_kernels(include_compiled: bool = True):
     """Name -> module pool the mixed workload draws from: the paper's
-    five hand-written benchmarks plus the DSL-compiled kernels.  The
-    compiled kernels need the compiler, which the port does not have yet:
-    asking for them raises instead of serving a smaller mix."""
+    five hand-written benchmarks plus the DSL-compiled kernels."""
+    pool = dict(ALL)
     if include_compiled:
-        raise NotImplementedError(
-            "the mixed workload's DSL-compiled tenants (histogram, scan, "
-            "spmv) need the compiler, which repro_torch has not ported yet "
-            "(ROADMAP queue 1 item 8, the compiler copy); pass "
-            "--no-compiled (include_compiled=False) to serve the five "
-            "paper kernels")
-    return dict(ALL)
+        pool.update(compiled_kernels())
+    return pool
 
 
 def build_workload(n_launches: int, seed: int = 0,
@@ -227,7 +221,8 @@ def drain_workload(work, n_sm: int, tenants: int = 4,
                    shard_sm: bool = False,
                    profile: bool = False,
                    device="cuda"):
-    """Submit ``work`` to a fresh server and drain it.
+    """Submit ``work`` to a fresh server, predecode cache cleared, and
+    drain it.
 
     Oracle-checks every ticket; returns ``(server, stats, wall_s)``.
     ``resident=True`` turns on the device-resident gmem pool
@@ -237,16 +232,21 @@ def drain_workload(work, n_sm: int, tenants: int = 4,
 
     The server writes its latency histograms and drain gauges into a
     fresh :class:`~repro_torch.obs.MetricsRegistry` (or the one passed
-    in), so each call's telemetry is isolated.  The drain's results are
-    kept as ``srv.last_results`` ({ticket: GridResult}, ticket order =
-    ``work`` order), for callers that check more than the oracles.
+    in), so each call's telemetry is isolated; the drain's per-bucket build
+    attribution (wall-ms, cache misses — captured as a delta of the
+    process-wide counters) is attached as ``srv.jit_attribution``.  The
+    drain's results are kept as ``srv.last_results`` ({ticket:
+    GridResult}, ticket order = ``work`` order), for callers that check
+    more than the oracles.
     """
+    executor.clear_caches()
     srv = rt.RuntimeServer(n_sm=n_sm, policy=policy,
                            max_window_cycles=max_window_cycles,
                            resident_gmem=resident,
                            metrics=metrics or obs.MetricsRegistry(),
                            shard_sm=shard_sm, profile=profile,
                            device=device)
+    jit_before = obs.jit_summary()
     tickets = {}
     t0 = time.perf_counter()
     for i, (name, mod, n, code, (grid, bd), g0) in enumerate(work):
@@ -255,6 +255,7 @@ def drain_workload(work, n_sm: int, tenants: int = 4,
         tickets[t] = (mod, n, g0)
     results, stats = srv.drain()
     wall = time.perf_counter() - t0
+    srv.jit_attribution = obs.jit_delta(jit_before, obs.jit_summary())
     srv.last_results = results
     for t, (mod, n, g0) in tickets.items():
         np.testing.assert_array_equal(
@@ -266,10 +267,8 @@ def drain_workload(work, n_sm: int, tenants: int = 4,
 def metrics_document(srv, loadgen=None) -> dict:
     """The serving run's full telemetry as one JSON-safe document: the
     server's registry snapshot (latency histograms, ``drain.*`` /
-    ``pool.*`` gauges, ``server.*`` counters) plus the process transfer
-    counters.  ``"jit"`` keeps the JAX document's shape and holds ``{}``:
-    the port has no jit cache, and attributing its ``nvcc`` builds to
-    footprint buckets is still to do.  The CLI's
+    ``pool.*`` gauges, ``server.*`` counters) plus the drain's build
+    attribution and the process transfer counters.  The CLI's
     ``--metrics`` print, ``--metrics-out`` dump, and the BENCH JSON rows
     all derive from this one shape.  A loadgen run attaches its
     :class:`~repro_torch.runtime.LoadReport` under ``"loadgen"`` — the shape
@@ -279,7 +278,7 @@ def metrics_document(srv, loadgen=None) -> dict:
     from repro_torch.obs.profile import SCHEMA_VERSION
     doc = {"schema_version": SCHEMA_VERSION,
            "metrics": srv.metrics.snapshot(),
-           "jit": {},
+           "jit": getattr(srv, "jit_attribution", {}),
            "transfers": rt.TRANSFERS.snapshot()}
     if loadgen is not None:
         doc["loadgen"] = loadgen.as_dict()
@@ -399,6 +398,7 @@ def serve_loop(work, args):
     """The ``--loop`` (no loadgen) path: submit the whole workload as a
     burst through a running ServingLoop, quiesce, oracle-check every
     future.  Returns ``(srv, n_completed, wall_s)``."""
+    executor.clear_caches()
     srv = rt.RuntimeServer(n_sm=args.n_sm, policy=args.policy,
                            max_window_cycles=args.max_window_cycles,
                            resident_gmem=args.resident_gmem,
@@ -443,6 +443,13 @@ def print_stats(srv, stats, wall: float, n_sm: int, tenants: int) -> None:
     snap = srv.metrics.snapshot()
     print(obs.render_snapshot({"gauges": snap["gauges"]},
                               prefix="[serve]   "))
+    jit = getattr(srv, "jit_attribution", None)
+    if jit:
+        for bucket in sorted(jit):
+            d = jit[bucket]
+            print(f"[serve]   jit {bucket}: "
+                  f"{d.get('jit_cache_misses', 0)} misses, "
+                  f"{d.get('jit_trace_ms', 0.0):.1f} ms tracing")
 
 
 def main(argv=None, pool=None):
@@ -467,10 +474,8 @@ def main(argv=None, pool=None):
                     help="also time sequential run_grid calls (kernels "
                          "already built)")
     ap.add_argument("--no-compiled", action="store_true",
-                    help="five-kernel workload only (skip the "
-                         "DSL-compiled histogram/scan/spmv tenants); "
-                         "required for the mixed workload until the "
-                         "compiler is ported")
+                    help="legacy five-kernel workload only (skip the "
+                         "DSL-compiled histogram/scan/spmv tenants)")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (default: cuda; cpu runs "
                          "the plain PyTorch path)")

@@ -2,7 +2,7 @@
 
 Zero-dependency (stdlib + numpy) and import-cycle free: this package
 imports nothing from the rest of :mod:`repro_torch`, while the runtime
-and the serving CLI emit into it.  Two pillars:
+and the serving CLI emit into it.  Three pillars:
 
 * :mod:`repro_torch.obs.trace` — span tree over the launch lifecycle
   (``submit → admit → queue-wait → pack → dep-resolve → dispatch →
@@ -11,17 +11,24 @@ and the serving CLI emit into it.  Two pillars:
 * :mod:`repro_torch.obs.metrics` — counters / gauges / exact-quantile
   histograms.  Process global: :data:`METRICS`.
 
-The JAX package's third pillar, ``jitprof``, probes the jax jit cache
-and has no counterpart here yet: the port's kernels are built once by
-``kernels/_build.py``.  :mod:`repro_torch.obs.profile` (the
-architectural profiler) bridges to ``core`` and is imported directly.
+* :mod:`repro_torch.obs.jitprof` — cache-miss detection and wall-ms
+  attribution around the runtime's cached seams: the fused kernel's
+  predecode cache and the kernel library's build
+  (:func:`jit_call`, :func:`jit_summary`, :func:`jit_delta`).
+
+:mod:`repro_torch.obs.profile` (the architectural profiler) bridges to
+``core`` and is imported directly.
 """
 from .metrics import (METRICS, Counter, Gauge, Histogram, MetricsRegistry,
                       render_snapshot, safe_div)
+from .jitprof import delta as jit_delta
+from .jitprof import jit_call
+from .jitprof import summary as jit_summary
 from .trace import NULL_SPAN, TRACER, Span, Tracer
 
 __all__ = [
     "METRICS", "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "render_snapshot", "safe_div",
     "TRACER", "Tracer", "Span", "NULL_SPAN",
+    "jit_call", "jit_summary", "jit_delta",
 ]

@@ -58,7 +58,7 @@ from ..core.pipeline import MachineConfig
 from ..core.pipeline.fused import (C_CYCLES, C_STEPS, counters_from_rows,
                                    fused_sm_run, predecode, staged_run)
 from ..core.pipeline.state import as_int32, on_device, resolve_device
-from ..obs import METRICS, TRACER
+from ..obs import METRICS, TRACER, jit_call
 from . import registry as reg
 from .registry import Module, ModuleRegistry
 
@@ -318,6 +318,13 @@ def _records(codes: bytes, shape: Tuple[int, ...],
     return predecode(torch.from_numpy(x.copy()), cfg)
 
 
+def clear_caches() -> None:
+    """Forget every predecoded program set, so that the next call into
+    each bucket counts as a build-attribution miss (the counterpart of
+    ``jax.clear_caches``; the kernel library stays loaded)."""
+    _records.cache_clear()
+
+
 class Schedule(NamedTuple):
     """The dispatch schedule of one :func:`execute`, uploaded once: one
     geometry row per position (:data:`GEOM_FIELDS` of the fused kernel),
@@ -457,15 +464,19 @@ def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
     buf = torch.as_tensor(np.concatenate(
         [geom.ravel(), geom[:, 0], np.arange(n_blocks) % n_sm]
     ).astype(np.int32), device=dev)
-    sched = Schedule(
-        geom=geom, geom_dev=buf[:8 * n_blocks].view(n_blocks, 8),
-        launch_ids=buf[8 * n_blocks:9 * n_blocks],
-        sm_ids=buf[9 * n_blocks:],
-        records=(_records(codes.tobytes(), codes.shape, cfg).to(dev)
-                 if cfg.execute_backend == "cuda_fused" and dev.type == "cuda"
-                 else None))
-    ctr, sm_cyc = run_groups(cfg, n_warps, n_sm, chunk, codes_d, sched,
-                             gmems)
+    # build attribution: a miss is a call that predecoded new programs or
+    # built the kernel library, charged to the footprint bucket
+    with jit_call("executor.run_positions", _records,
+                  bucket=f"c{code_len}g{g_width}w{n_warps}sm{n_sm}"):
+        sched = Schedule(
+            geom=geom, geom_dev=buf[:8 * n_blocks].view(n_blocks, 8),
+            launch_ids=buf[8 * n_blocks:9 * n_blocks],
+            sm_ids=buf[9 * n_blocks:],
+            records=(_records(codes.tobytes(), codes.shape, cfg).to(dev)
+                     if cfg.execute_backend == "cuda_fused"
+                     and dev.type == "cuda" else None))
+        ctr, sm_cyc = run_groups(cfg, n_warps, n_sm, chunk, codes_d, sched,
+                                 gmems)
     return DeviceGrid(gmems=gmems, ctr=ctr, sm_cyc=sm_cyc,
                       n_sm=n_sm, n_steps=-(-n_blocks // n_sm),
                       launch_offsets=offsets, launch_blocks=nblocks,

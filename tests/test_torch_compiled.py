@@ -1,15 +1,17 @@
 """The three DSL-compiled kernels (histogram, scan, ELL SpMV) through the
 port's executor against the JAX package, bit for bit, at 1, 2 and 4 SMs.
-The binaries are built here with ``repro.compiler`` (the compiler's port
-is later work; a test may import the JAX package, the port may not)."""
+Each binary is built by the port's compiler (``repro_torch.compiler``),
+equal to the JAX package's (``repro.compiler``), and the JAX executor runs
+the JAX binary."""
 import functools
 
 import numpy as np
 import pytest
 
 from repro import runtime as jrt
-from repro.compiler.kernels import COMPILED
+from repro.compiler.kernels import COMPILED as JCOMPILED
 from repro.core.machine import MachineConfig as JaxConfig
+from repro_torch.compiler.kernels import COMPILED
 from repro_torch.core import scheduler
 
 FIELDS = ("gmem", "cycles_per_block", "op_issues", "op_lanes", "stack_ops",
@@ -29,10 +31,11 @@ def _same(got, want, tag):
 @functools.lru_cache(maxsize=None)
 def _case(name):
     mod, n = COMPILED[name], SIZES[name]
-    code = mod.build(n)
+    code, jcode = mod.build(n), JCOMPILED[name].build(n)
+    np.testing.assert_array_equal(code, jcode)
     g0 = mod.make_gmem(np.random.default_rng(8), n)
     grid, bd = mod.launch(n)
-    dg = jrt.execute([jrt.LaunchSpec(code, grid, bd, g0.copy())], n_sm=2,
+    dg = jrt.execute([jrt.LaunchSpec(jcode, grid, bd, g0.copy())], n_sm=2,
                      cfg=JAX)
     return mod, n, code, grid, bd, g0, dg.to_results()[0], dg.report()
 

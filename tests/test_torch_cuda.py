@@ -513,3 +513,55 @@ def test_serving_loop_and_stream_events_on_card(card):
     twice = scheduler.run_grid(code, grid, bd, want.gmem.copy(),
                                device="cpu")
     np.testing.assert_array_equal(l2.result().gmem, twice.gmem)
+
+
+@pytest.mark.parametrize("backend", ["cuda_fused", "cuda"])
+@pytest.mark.parametrize("optimize", [True, False], ids=["opt", "naive"])
+@pytest.mark.parametrize("name", ["histogram", "scan", "spmv"])
+def test_compiled_binaries_on_card_match_cpu(card, name, optimize, backend):
+    """The compiler's binaries (IMAD, SELP with a speculative LDS at a
+    negative address, XOR-swap moves, the 64-instruction bucket) on the
+    card: every field equal to the plain path's on the CPU."""
+    from repro_torch.compiler.kernels import COMPILED
+    mod = COMPILED[name]
+    code, (grid, bd) = mod.build(64, optimize), mod.launch(64)
+    g0 = mod.make_gmem(np.random.default_rng(0), 64)
+    want = scheduler.run_grid(code, grid, bd, g0.copy(), n_sm=2,
+                              device="cpu")
+    _build.LAUNCHES.clear()
+    got = scheduler.run_grid(code, grid, bd, g0.copy(), n_sm=2,
+                             cfg=MachineConfig(execute_backend=backend),
+                             device=card)
+    for f in want._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(got, f)),
+                                      np.asarray(getattr(want, f)), f)
+    kernel = "fused_sm_run" if backend == "cuda_fused" else "simt_alu"
+    assert set(_build.LAUNCHES) == {kernel}
+
+
+def test_gpgpu_compile_runs_on_card(card, capsys):
+    from repro_torch.launch import gpgpu_compile
+    _build.LAUNCHES.clear()
+    assert gpgpu_compile.main(["--all", "--no-ir", "--run"]) == 0
+    assert capsys.readouterr().out.count("oracle OK") == 3
+    assert dict(_build.LAUNCHES) == {"fused_sm_run": 3}
+
+
+def test_mixed_drain_attribution_on_card(card):
+    """A mixed drain from cleared caches misses in the 64- and the
+    96-instruction buckets; the same drain again misses nowhere."""
+    from repro_torch import obs
+    from repro_torch import runtime as rt
+    from repro_torch.launch import gpgpu_serve
+    work = gpgpu_serve.build_workload(16, seed=1)
+    srv, _, _ = gpgpu_serve.drain_workload(work, 2, device=card)
+    jit = gpgpu_serve.metrics_document(srv)["jit"]
+    assert {"c64", "c96"} <= {b.split("g")[0] for b in jit if b != "_total"}
+    before = obs.jit_summary()
+    again = rt.RuntimeServer(n_sm=2, device=card)
+    for i, (_, _, _, code, (grid, bd), g0) in enumerate(work):
+        again.submit(code, grid, bd, g0.copy(), client=f"tenant{i % 4}")
+    again.drain()
+    after = obs.jit_delta(before, obs.jit_summary())
+    assert set(after) == {"_total"}
+    assert after["_total"]["jit_cache_misses"] == 0

@@ -46,8 +46,12 @@ def program(case):
     if kind == "paper":
         return ALL[arg].build(32)
     if kind == "compiled":
-        from repro.compiler.kernels import COMPILED
-        return COMPILED[arg].build(COMPILED_SIZES[arg])
+        from repro.compiler.kernels import COMPILED as JCOMPILED
+        from repro_torch.compiler.kernels import COMPILED
+        code = COMPILED[arg].build(COMPILED_SIZES[arg])
+        np.testing.assert_array_equal(
+            code, JCOMPILED[arg].build(COMPILED_SIZES[arg]))
+        return code
     if kind == "straight":
         return random_straightline(np.random.default_rng(int(arg)))
     if kind == "branchy":

@@ -36,7 +36,15 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.obs.profile", "repro_torch.runtime.policy",
             "repro_torch.runtime.stream", "repro_torch.runtime.server",
             "repro_torch.runtime.service", "repro_torch.runtime.loadgen",
-            "repro_torch.launch.gpgpu_serve"} <= set(mods)
+            "repro_torch.launch.gpgpu_serve", "repro_torch.compiler",
+            "repro_torch.compiler.ir", "repro_torch.compiler.dsl",
+            "repro_torch.compiler.passes", "repro_torch.compiler.regalloc",
+            "repro_torch.compiler.codegen", "repro_torch.compiler.kernels",
+            "repro_torch.compiler.kernels.histogram",
+            "repro_torch.compiler.kernels.scan",
+            "repro_torch.compiler.kernels.spmv",
+            "repro_torch.launch.gpgpu_compile",
+            "repro_torch.obs.jitprof"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -112,12 +120,17 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
 def test_serving_entry_points_raise_without_a_card(monkeypatch):
     """The serving runtime and its CLI default to the card too."""
     from repro_torch import runtime as rt
-    from repro_torch.launch import gpgpu_serve
+    from repro_torch.launch import gpgpu_compile, gpgpu_serve
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (rt.RuntimeServer, rt.Runtime, rt.GmemPool):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gpgpu_serve.main(["--no-compiled", "--launches", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpgpu_serve.main(["--launches", "1"])
+    for argv in (["--all", "--no-ir"], ["scan", "--run"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            gpgpu_compile.main(argv)
     srv = rt.RuntimeServer(device="cpu")        # asked for the CPU: runs
     assert srv.device.type == "cpu" and srv.gmem_pool.device.type == "cpu"

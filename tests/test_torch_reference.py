@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from repro import runtime as jrt
-from repro.compiler.kernels import COMPILED
+from repro.compiler.kernels import COMPILED as JCOMPILED
 from repro.core import machine as jm
+from repro_torch.compiler.kernels import COMPILED
 from repro_torch.core import machine as tm
 from repro_torch.core import scheduler
 from repro_torch.core.pipeline import block_loop, init_state
@@ -71,7 +72,9 @@ def test_paper_program_matches_jax_reference(name):
 def test_compiled_kernel_matches_jax_reference(name):
     mod, n = COMPILED[name], SIZES[name]
     code, grid, bd, g0 = _launch(mod, n)
-    want = jrt.execute([jrt.LaunchSpec(code, grid, bd, g0.copy())], n_sm=2,
+    jcode = JCOMPILED[name].build(n)
+    np.testing.assert_array_equal(code, jcode)
+    want = jrt.execute([jrt.LaunchSpec(jcode, grid, bd, g0.copy())], n_sm=2,
                        cfg=JREF).to_results()[0]
     got = scheduler.run_grid(code, grid, bd, g0.copy(), REF, n_sm=2,
                              device="cpu")

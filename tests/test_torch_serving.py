@@ -245,10 +245,15 @@ def test_cli_drain_equals_jax_cli(tmp_path, capsys):
               "busy_cycles", "energy_eu", "occupancy"):
         assert getattr(stats, f) == getattr(jstats, f), f
     np.testing.assert_array_equal(stats.per_sm_cycles, jstats.per_sm_cycles)
-    # the document: same keys at every level; "jit" stays empty here
+    # the document: same keys at every level; "jit" holds only the
+    # "_total" row here, since the CPU plain path predecodes and builds
+    # nothing (no miss), where the JAX CLI traces each bucket
     jkeys = _keys(jdoc)
-    jkeys["jit"] = {}
+    jkeys["jit"] = {"_total": jkeys["jit"]["_total"]}
     assert _keys(doc) == jkeys
+    assert doc["jit"]["_total"]["jit_cache_misses"] == 0
+    assert doc["jit"]["_total"]["jit_cache_hits"] == \
+        stats.n_sub_batches
     assert doc["transfers"].keys() == jdoc["transfers"].keys()
     gauges, jgauges = doc["metrics"]["gauges"], jdoc["metrics"]["gauges"]
     skip = ("drain.wall_s", "drain.launches_per_s")
@@ -284,14 +289,20 @@ def test_cli_skewed_and_longtail_pin_the_jax_numbers(capsys):
         tserve.main(["--skewed", "--longtail", "--device", "cpu"])
 
 
-def test_cli_without_no_compiled_raises_naming_the_compiler():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tserve.main(["--launches", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="compiler"):
-        tserve.build_workload(4)
-    assert [w[0] for w in tserve.build_workload(
-        6, include_compiled=False)] == [w[0] for w in jserve.build_workload(
-            6, include_compiled=False)]
+def test_cli_without_no_compiled_serves_the_eight_kernel_pool(capsys):
+    """Without ``--no-compiled`` the CLI serves the mixed workload: the
+    paper's five and the three DSL-compiled kernels, each held to its
+    oracle inside the CLI; the workload's kernels equal the JAX CLI's."""
+    assert sorted(tserve.workload_kernels()) == \
+        sorted(jserve.workload_kernels())
+    for n_launches, compiled in ((6, True), (6, False), (8, True)):
+        names = [w[0] for w in tserve.build_workload(
+            n_launches, include_compiled=compiled)]
+        assert names == [w[0] for w in jserve.build_workload(
+            n_launches, include_compiled=compiled)]
+    st = tserve.main(["--launches", "8", "--n-sm", "8", "--device", "cpu"])
+    assert st.n_launches == 8 and st.n_blocks == 14
+    assert "[serve] 8 launches" in capsys.readouterr().out
 
 
 def test_cli_raises_without_a_card(monkeypatch):
