@@ -127,7 +127,23 @@ Phases, each printed as it ends:
    five policies, counted and replayed as in phase 14; one 16-launch mixed
    drain equal to the CPU plain path; the build attribution of a drain
    from cleared caches (misses in the 64- and the 96-instruction code
-   buckets) and of the same drain again (no miss).
+   buckets) and of the same drain again (no miss);
+17. training (``[train]``): the flash backward kernel against its plain
+   version (``mha_bwd_ref``) at five shapes (qwen3's training shape,
+   smollm's 15/5 heads of 64, float32 dh 16, a ragged S=200, full
+   attention), two calls bit-equal; ``repro_torch.launch.train.main``
+   trains qwen3-0.6b at full width (28 layers, 596,042,752 random bf16
+   parameters from seed 0) for 6 steps of 8 x 512 tokens, every loss and
+   gradient norm finite, the flash launches exactly what the remat policy
+   predicts; one ``build_train_step`` step with every gradient leaf
+   non-zero in every layer, and the same step with the plain attention in
+   the kernel's place; a reduced step on the card against the CPU plain
+   path; ``--die-at 9`` then ``--restore auto`` at ``--reduced``, the
+   final parameters bit-exact against an uninterrupted run; one
+   full-width step under ``torch.profiler`` (device ms, launches, busy
+   share, tokens/s, top operations), and the backward kernel's time at
+   the training shape beside the plain version and the backward of
+   ``scaled_dot_product_attention``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are on the card named in the
@@ -146,16 +162,22 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+import warnings
 from dataclasses import replace
 from functools import partial
 from pathlib import Path
 
-import numpy as np
-import torch
+# cuBLAS is deterministic only with a fixed workspace, named before it
+# starts: phase 17 resumes a training run bit for bit
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -959,8 +981,8 @@ def rel_err(a, b):
     return ((a - b).norm() / b.norm()).item()
 
 
-def device_profile(fn):
-    """Device time (ms), kernel launches and the three costliest kernels
+def device_profile(fn, top=3):
+    """Device time (ms), kernel launches and the ``top`` costliest kernels
     of one run of ``fn``, from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -971,7 +993,7 @@ def device_profile(fn):
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     dev_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:3]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     return dev_us / 1e3, launches, "; ".join(
         f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
         for e in top)
@@ -1967,6 +1989,358 @@ def phase_serve_mixed(launches, smi):
     return fused
 
 
+# ------------------------------------------------------------ phase 17
+FLASH_BWD_REPLACES = "src/repro/models/layers.py:62"
+#: full-width training: qwen3-0.6b uncut, 6 steps of 8 x 512 tokens
+TRAIN_ARGS = ["--arch", "qwen3-0.6b", "--steps", "6", "--batch", "8",
+              "--seq", "512", "--log-every", "1"]
+TRAIN_B, TRAIN_S = 8, 512
+#: the backward kernel against the fp32 plain backward on the same q, k,
+#: v, o, dO and lse: the largest error of each gradient within this share
+#: of its largest magnitude (bf16 outputs round at 2^-8 of their value)
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
+#: (tag, B, S, H, KH, dh, dtype, causal)
+BWD_SHAPES = [("qwen3 training", 8, 512, 16, 8, 128, torch.bfloat16, True),
+              ("smollm 15/5 heads", 8, 512, 15, 5, 64, torch.bfloat16, True),
+              ("f32 dh 16", 2, 256, 4, 2, 16, torch.float32, True),
+              ("ragged S=200", 4, 200, 16, 8, 128, torch.bfloat16, True),
+              ("full attention", 4, 256, 16, 8, 128, torch.bfloat16, False)]
+#: the full-width step with the flash kernel against the same step with
+#: the plain attention: the loss within 1e-2 relative and each gradient
+#: leaf within a relative Frobenius error of 5e-2, sanity bounds like
+#: LM_REL_TOL (the kernel rounds P to bf16 before PV, the plain version
+#: does not, over 28 layers); the reduced step card against CPU: loss
+#: 1e-3 relative, gradient norms 5e-2, parameters 2e-2 (bf16)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 5e-2
+
+
+def bwd_case(g, B, S, H, KH, dh, dtype, causal):
+    """Inputs of one backward call, and the forward's o and lse from the
+    kernel (the variant the rule picks)."""
+    from repro_torch.kernels import flash_attention as fa
+    q = rand(g, (B, S, H, dh), dtype)
+    k, v = (rand(g, (B, S, KH, dh), dtype) for _ in range(2))
+    do = rand(g, (B, S, H, dh), dtype)
+    o, lse = fa._launch(q, k, v, causal, None, want_lse=True)
+    return q, k, v, o, do, lse, fa.variant(q, k, v)
+
+
+def phase_flash_bwd_vs_plain():
+    """The backward kernel at the five shapes against ``mha_bwd_ref``;
+    two calls give equal bits.  Returns the largest absolute error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import mha_bwd_ref, mha_lse_ref
+    g = torch.Generator(device="cuda").manual_seed(17)
+    max_err, lines = 0.0, []
+    for tag, B, S, H, KH, dh, dtype, causal in BWD_SHAPES:
+        q, k, v, o, do, lse, var = bwd_case(g, B, S, H, KH, dh, dtype,
+                                            causal)
+        lse_err = (lse - mha_lse_ref(q, k, v, causal=causal)[1]).abs() \
+            .max().item()
+        if lse_err > 1e-4 * max(1.0, lse.abs().max().item()):
+            raise AssertionError(f"flash lse {tag}: error {lse_err}")
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+        again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+        torch.cuda.synchronize()
+        want = mha_bwd_ref(q, k, v, o, do, lse, causal=causal)
+        rels = []
+        for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"flash_attention_bwd {tag} {name}: "
+                                     f"two calls differ")
+            err = (a.float() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            if not err <= BWD_TOL[dtype] * scale:
+                raise AssertionError(f"flash_attention_bwd {tag} {name}: "
+                                     f"error {err} over {scale}")
+            max_err = max(max_err, err)
+            rels.append(err / scale)
+        lines.append(f"{tag} (B {B}, S {S}, {H}/{KH} heads, dh {dh}, "
+                     f"{str(dtype)[6:]}, causal={causal}, forward {var}): "
+                     f"lse {lse_err:.1e}, dq/dk/dv "
+                     + "/".join(f"{r:.1e}" for r in rels))
+        del q, k, v, o, do, lse, got, again, want
+    log("[flash_attention_bwd] vs mha_bwd_ref, error over each gradient's "
+        "largest magnitude (tolerance bf16 2e-2, f32 1e-3), two calls "
+        "bit-equal: " + "; ".join(lines) + f"; max_abs_err {max_err:.3e}")
+    return max_err
+
+
+def train_cli(launches, argv):
+    """``launch.train.main(argv)`` with its printed lines echoed; returns
+    (params, [(loss, grad norm)], counts, wall s)."""
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        params = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"[train] {line}")
+    stats = [(float(a), float(b)) for a, b in re.findall(
+        r"^step +\d+ loss +(\S+) gnorm +(\S+)", out, flags=re.M)]
+    return params, stats, counts, wall
+
+
+def rel_leaves(a, b):
+    """{path: relative Frobenius error} of two gradient trees."""
+    from repro_torch import tree as T
+    return {"/".join(map(str, p)): rel_err(x, y) for (p, x), (_, y) in
+            zip(T.leaves_with_paths(a), T.leaves_with_paths(b))}
+
+
+def phase_train(launches, smi):
+    """Training (docstring item 17).  Returns (flash forward launches,
+    backward launches) of the full-width CLI run, the backward kernel's
+    largest error, and the training shape's inputs for the timing."""
+    import tempfile
+    from repro_torch import configs, tree as T
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import (build_loss_and_grads,
+                                          build_train_step, deterministic)
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, opt_init
+    from repro_torch.kernels import _build
+    t_phase = time.perf_counter()
+    bwd_err = phase_flash_bwd_vs_plain()
+
+    # (2) the CLI at full width: 6 steps, every loss and norm finite
+    spec = configs.get("qwen3-0.6b")
+    cfg = spec.cfg
+    L, steps = cfg.n_layers, int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    per_step = {"none": (1, 1), "dots": (2, 1), "full": (2, 1)}[cfg.remat]
+    want = {"flash_attention": steps * L * per_step[0],
+            "flash_attention_bwd": steps * L * per_step[1]}
+    torch.cuda.reset_peak_memory_stats()
+    _build.VARIANTS.clear()
+    params, stats, counts, wall = train_cli(launches, TRAIN_ARGS)
+    if counts != want:
+        raise AssertionError(f"train: launches {counts}, the remat policy "
+                             f"{cfg.remat!r} predicts {want}")
+    if set(_build.VARIANTS) != {("flash_attention", "tc")}:
+        raise AssertionError(f"train: forward variants "
+                             f"{dict(_build.VARIANTS)}")
+    if len(stats) != steps or not all(np.isfinite(x) for s in stats
+                                      for x in s):
+        raise AssertionError(f"train: step lines {stats}")
+    # param_count() leaves out the qk-norm gains (the JAX formula)
+    n_params = sum(p.numel() for p in T.leaves(params))
+    if n_params != cfg.param_count() + 2 * L * cfg.dh * cfg.qk_norm:
+        raise AssertionError(f"train: {n_params} parameters")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] qwen3-0.6b full width ({L} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.dh}, vocab {cfg.vocab}, "
+        f"{n_params} parameters, param_count() {cfg.param_count()} without "
+        f"the qk-norm gains), {steps} steps of {TRAIN_B} x {TRAIN_S}: "
+        f"losses {[round(s[0], 4) for s in stats]}, grad norms "
+        f"{[round(s[1], 3) for s in stats]}, all finite; wall {wall:.1f} s; "
+        f"launches {counts} == remat {cfg.remat!r}'s prediction ({per_step[0]}"
+        f" forward, {per_step[1]} backward a layer a step), every forward "
+        f"the tc variant; peak memory {peak_gb:.1f} GB; {smi}")
+    del params
+
+    # (3) one step by build_train_step: every gradient non-zero; the same
+    # loss and gradients with the plain attention in the kernel's place
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), spec)
+    opt_cfg = OptConfig()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B, seed=0),
+                       device="cuda")
+    batch = data.batch(0)
+    step = build_train_step(spec, opt_cfg)
+    launches.clear()
+    _, _, st = step(params, opt_init(params, opt_cfg), batch)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    if counts != {k: n // steps for k, n in want.items()}:
+        raise AssertionError(f"train step: launches {counts}")
+    norms = {"/".join(map(str, p)): n.float().cpu() for p, n in
+             T.leaves_with_paths(st["grad_norms"])}
+    bad = [k for k, n in norms.items()
+           if not (torch.isfinite(n).all() and (n > 0).all())]
+    if bad:
+        raise AssertionError(f"train step: zero or non-finite gradient in "
+                             f"{bad}")
+    lo = min(norms.items(), key=lambda kv: kv[1].min().item())
+    log(f"[train] build_train_step at full width: launches {counts}; every "
+        f"gradient leaf finite and non-zero in every layer ({len(norms)} "
+        f"leaves; smallest {lo[0]} {lo[1].min().item():.3e}); attn norms "
+        f"layer 0: " + ", ".join(
+            f"{k.split('/')[-1]} {norms[k][0].item():.3e}" for k in norms
+            if "/attn/" in k))
+    del st
+    loss_and_grads = build_loss_and_grads(spec)
+    with deterministic():
+        lk, gk = loss_and_grads(params, batch)
+    with plain_attention(), deterministic():
+        lp, gp = loss_and_grads(params, batch)
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    rels = rel_leaves(gk, gp)
+    worst = max(rels.items(), key=lambda kv: kv[1])
+    if not (loss_rel <= TRAIN_LOSS_TOL and worst[1] <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"train step vs plain attention: loss {loss_rel}"
+                             f", gradients {rels}")
+    log(f"[train] full-width step, flash kernel vs plain attention: loss "
+        f"{lk.item():.5f} vs {lp.item():.5f} (relative {loss_rel:.2e}, tol "
+        f"{TRAIN_LOSS_TOL}); gradient leaves relative Frobenius <= "
+        f"{worst[1]:.2e} ({worst[0]}; tol {TRAIN_GRAD_TOL}); attn: "
+        + ", ".join(f"{k.split('/')[-1]} {v:.1e}" for k, v in rels.items()
+                    if "/attn/" in k))
+    del gk, gp
+
+    # (6a) one full-width step under the profiler, and unprofiled
+    state = opt_init(params, opt_cfg)
+
+    def one_step():
+        step(params, state, batch)
+
+    one_step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    step_ms = min(walls)
+    dev_ms, n_launch, top = device_profile(one_step, top=8)
+    log(f"[profile] train step qwen3-0.6b B={TRAIN_B} S={TRAIN_S}: wall "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms "
+        f"({TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} tokens/s at the best); "
+        f"device {dev_ms:.1f} ms in {n_launch} launches, busy "
+        f"{dev_ms / step_ms:.2f} of the best unprofiled wall; top: {top}; "
+        f"{smi}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+
+    # (4) the reduced step on the card against the CPU plain path: loss,
+    # every gradient leaf (rtol 5e-2, atol 5e-3, the CPU tests' gradient
+    # tolerance), and the parameters after one AdamW step within 2 lr plus
+    # one bf16 ulp (2^-7 of the larger value): Adam's first step moves each
+    # entry by lr times the sign of its gradient, so an entry whose
+    # gradient is near 0 may move either way
+    small = configs.reduced(spec)
+    p_cpu = api.init(torch.Generator().manual_seed(0), small)
+    b_cpu = SyntheticLM(DataConfig(vocab=small.cfg.vocab, seq_len=64,
+                                   global_batch=8, seed=0)).batch(0)
+    lr = 1e-2
+    sstep = build_train_step(small, OptConfig(lr=lr, warmup=1))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        p = T.tree_map(lambda t: t.to(dev), p_cpu)
+        b = {k: x.to(dev) for k, x in b_cpu.items()}
+        outs.append(build_loss_and_grads(small)(p, b)
+                    + sstep(p, opt_init(p, OptConfig()), b)[:1])
+    (lc, gc, pc), (lg, gg, pg) = outs
+    loss_rel = abs(lg.item() - lc.item()) / lc.item()
+    g_err = max(((a.cpu().float() - b.float()).abs()
+                 / (5e-3 + 5e-2 * b.float().abs())).max().item()
+                for a, b in zip(T.leaves(gg), T.leaves(gc)))
+    p_err = max(((a.cpu().float() - b.float()).abs()
+                 / (2 * lr + 2 ** -7 * torch.maximum(
+                     a.cpu().float().abs(), b.float().abs()))).max().item()
+                for a, b in zip(T.leaves(pg), T.leaves(pc)))
+    if not (loss_rel <= 1e-3 and g_err <= 1 and p_err <= 1):
+        raise AssertionError(f"reduced step card vs CPU: loss {loss_rel}, "
+                             f"gradients {g_err} of the tolerance, "
+                             f"params {p_err}")
+    log(f"[train] reduced step (seq 64, batch 8) card vs CPU plain path: "
+        f"loss {lg.item():.5f} vs {lc.item():.5f} (relative "
+        f"{loss_rel:.1e}, tol 1e-3), every gradient leaf within "
+        f"{g_err:.2f} of its tolerance, parameters after one step within "
+        f"{p_err:.3f} of the tolerance (2 lr + 2^-7 of the larger value, "
+        f"lr {lr})")
+
+    # (5) resume on the card, bit-exact against an uninterrupted run
+    small_args = ["--arch", "qwen3-0.6b", "--reduced", "--seq", "64",
+                  "--batch", "8", "--steps", "12", "--log-every", "100"]
+    pa, _, _, wall_a = train_cli(launches, small_args)
+    with tempfile.TemporaryDirectory() as ck:
+        ck_args = small_args + ["--ckpt-dir", ck, "--ckpt-every", "4"]
+        try:
+            train_cli(launches, ck_args + ["--die-at", "9"])
+        except SystemExit as e:
+            if e.code != 42:
+                raise
+        else:
+            raise AssertionError("train --die-at 9 did not exit")
+        pb, _, _, _ = train_cli(launches, ck_args + ["--restore", "auto"])
+    diff = [k for (k, a), (_, b) in zip(T.leaves_with_paths(pa),
+                                       T.leaves_with_paths(pb))
+            if not torch.equal(a.view(torch.int16), b.view(torch.int16))]
+    if diff:
+        raise AssertionError(f"resume: parameters differ at {diff}")
+    log(f"[train] resume at --reduced (seq 64): --die-at 9 exited 42, "
+        f"--restore auto resumed from step 8; the final parameters equal the "
+        f"uninterrupted 12-step run's bit for bit ({wall_a:.1f} s for that "
+        f"run)")
+    log(f"[train] phase wall {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return want["flash_attention"], want["flash_attention_bwd"], bwd_err
+
+
+def time_flash_bwd(launches_on_path, max_err):
+    """The backward kernel at the training shape (B 8, S 512, 16/8 heads,
+    dh 128, bf16, causal) beside its plain version and the backward of
+    ``scaled_dot_product_attention`` on the same inputs."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import mha_bwd_ref
+    _, B, S, H, KH, dh, dtype, causal = BWD_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v, o, do, lse, _ = bwd_case(g, B, S, H, KH, dh, dtype, causal)
+    ms, ev_ms = timed(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse),
+                      10)
+    plain_ms = device_ms(lambda: mha_bwd_ref(q, k, v, o, do, lse), 3)
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    by_backend = {}
+    for be in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION):
+        # a backend that refuses the shape raises (and warns why)
+        with sdpa_kernel(be), warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            try:
+                out = F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, enable_gqa=True)
+                torch.autograd.grad(out, (qh, kh, vh), doh,
+                                    retain_graph=True)
+            except RuntimeError:
+                continue
+            by_backend[be.name] = device_ms(
+                lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                            retain_graph=True), 10)
+        del out
+    lib_name = "CUDNN_ATTENTION" if "CUDNN_ATTENTION" in by_backend else \
+        min(by_backend, key=by_backend.get)
+    lib_ms = by_backend[lib_name]
+    esz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = esz * (4 * B * S * H * dh + 4 * B * S * KH * dh) \
+        + 4 * B * H * S                      # q,o,dO,dq; k,v,dk,dv; lse
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    flops = 5 * 2 * dh * pairs               # S, dP, dV, dQ, dK
+    bound_ms, by, peak = bound(nbytes, flops, dtype)
+    log(f"[timing] flash_attention_bwd B={B} S={S} H={H}/{KH} dh={dh} bf16 "
+        f"causal, device (events, back to back): {ms:.4f} ms "
+        f"({ev_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention backward by backend "
+        + ", ".join(f"{n} {t:.4f} ms" for n, t in by_backend.items())
+        + f" (library_ms: {lib_name}); bound {bound_ms:.5f} ms ({nbytes} B, "
+        f"{flops} FLOP, {by}; peak {peak}); {ms / lib_ms:.1f}x the library")
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces=FLASH_BWD_REPLACES, launches=launches_on_path,
+                max_abs_err=max_err, ms=ms, event_ms=ev_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=lib_ms, library_backend=lib_name)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from the repository (src/repro_torch "
@@ -2012,6 +2386,11 @@ def main() -> int:
     serve_launches = phase_serve_overlay(_build.LAUNCHES, smi)
     compile_fused, compile_alu = phase_compile(_build.LAUNCHES, smi)
     mixed_launches = phase_serve_mixed(_build.LAUNCHES, smi)
+    train_fwd, train_bwd, bwd_err = phase_train(_build.LAUNCHES, smi)
+    kernels.append(time_flash_bwd(train_bwd, bwd_err))
+    kernels[2]["launches_by_path"] = {"serving prefill (phase 9)":
+                                          flash_launches,
+                                      "training (phase 17)": train_fwd}
     kernels[0]["launches_by_path"] = {"staged path (phase 5)": alu_launches,
                                       "compiled binaries (phase 15)":
                                           compile_alu}

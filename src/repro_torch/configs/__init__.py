@@ -2,7 +2,8 @@
 
 Each module exposes ``SPEC: ArchSpec``.  ``get(name)`` returns it;
 ``reduced(spec)`` builds the same-family small config for CPU tests.
-Ported so far: qwen3-0.6b, the dense decoder the serving path runs, and
+Ported so far: qwen3-0.6b, the dense decoder the serving and training
+paths run, smollm-360m, the training CLI's default architecture, and
 flexgrip, the paper's overlay configuration (a ``MachineConfig``); ``get``
 of any other architecture of ``ARCH_IDS`` raises "not yet ported".
 """
@@ -18,7 +19,7 @@ ARCH_IDS = (
     "whisper_medium", "flexgrip",
 )
 #: the architectures whose modules the port has
-PORTED = ("qwen3_0p6b", "flexgrip")
+PORTED = ("qwen3_0p6b", "smollm_360m", "flexgrip")
 
 # assigned input shapes (LM family): name -> (seq_len, global_batch, kind)
 SHAPES: Dict[str, Tuple[int, int, str]] = {

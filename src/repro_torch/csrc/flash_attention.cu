@@ -8,6 +8,13 @@
 // aligned top-left, P rounded to v's dtype before the PV product, and the
 // output acc / max(l, 1e-30) in q's dtype.
 //
+// Row log-sum-exp (training): a non-null `lse` receives fp32 (B, H, Sq),
+// the natural-log m * scale + log l of each row, which the backward
+// (flash_attention_bwd.cu) needs to recompute P = exp(S * scale - lse).
+// The SIMT variant keeps m in natural-log units; the tensor-core one keeps
+// it in log2 units (scale * log2 e folded in), so it writes m * ln 2 +
+// log l.  Serving passes null and stores no row statistic.
+//
 // Layout: q and o are (B, Sq, H, dh), k and v (B, Sk, KH, dh), each with
 // its own batch, sequence and head strides and a contiguous last axis, so
 // the model's (B, S, H, dh) activations and a prefix of its KV cache are
@@ -73,6 +80,7 @@ constexpr int BK = 64;         // keys per KV tile
 constexpr int THREADS = 256;   // simt: 16 row groups x 16 column lanes
 constexpr int PLD = BK + 1;    // row stride of the P tile
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Strides {
@@ -118,7 +126,8 @@ __device__ __forceinline__ float half_sum(float x) {
 template <typename T, int NJ>  // NJ * 16 >= dh output columns per row
 __global__ void __launch_bounds__(THREADS)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides qs,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Strides qs,
                  Strides ks, Strides vs, Strides os, int rep, int Sq, int Sk,
                  int dh, float scale, int causal) {
   extern __shared__ float smem[];
@@ -215,6 +224,9 @@ __global__ void __launch_bounds__(THREADS)
     if (qi >= Sq) continue;
     T* row = o + b * os.b + qi * os.s + h * os.h;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane == 0)  // (B, H, Sq); gridDim.y is H
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qi] =
+          m[i] + logf(l[i]);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = lane + 16 * j;
@@ -231,7 +243,7 @@ size_t smem_bytes(int dh) {
 }
 
 template <typename T, int NJ>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const long long* st, int B, int H, int KH, int Sq, int Sk, int dh,
            float scale, int causal, cudaStream_t stream) {
   auto kernel = flash_kernel<T, NJ>;
@@ -243,7 +255,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
+      static_cast<const T*>(v), static_cast<T*>(o), lse,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, H / KH,
       Sq, Sk, dh, scale, causal);
@@ -252,19 +264,19 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             const long long* st, int B, int H, int KH, int Sq, int Sk,
-             int dh, float scale, int causal, cudaStream_t s) {
+             float* lse, const long long* st, int B, int H, int KH, int Sq,
+             int Sk, int dh, float scale, int causal, cudaStream_t s) {
   if (dh <= 32)
-    return launch<T, 2>(q, k, v, o, st, B, H, KH, Sq, Sk, dh, scale, causal,
-                        s);
+    return launch<T, 2>(q, k, v, o, lse, st, B, H, KH, Sq, Sk, dh, scale,
+                        causal, s);
   if (dh <= 64)
-    return launch<T, 4>(q, k, v, o, st, B, H, KH, Sq, Sk, dh, scale, causal,
-                        s);
+    return launch<T, 4>(q, k, v, o, lse, st, B, H, KH, Sq, Sk, dh, scale,
+                        causal, s);
   if (dh <= 128)
-    return launch<T, 8>(q, k, v, o, st, B, H, KH, Sq, Sk, dh, scale, causal,
-                        s);
-  return launch<T, 16>(q, k, v, o, st, B, H, KH, Sq, Sk, dh, scale, causal,
-                       s);
+    return launch<T, 8>(q, k, v, o, lse, st, B, H, KH, Sq, Sk, dh, scale,
+                        causal, s);
+  return launch<T, 16>(q, k, v, o, lse, st, B, H, KH, Sq, Sk, dh, scale,
+                       causal, s);
 }
 
 
@@ -305,7 +317,8 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                    Strides qs, Strides ks, Strides vs, Strides os, int rep,
+                    float* __restrict__ lse, Strides qs, Strides ks,
+                    Strides vs, Strides os, int rep,
                     int Sq, int Sk, float scale_log2, int causal) {
   using T = Tile<DH>;
   constexpr int KC = DH / 16;  // 16-deep chunks of a head
@@ -449,6 +462,9 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (row >= Sq) continue;
     bf16* dst = o + b * os.b + row * os.s + h * os.h + 2 * t4;
     const float den = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && t4 == 0)  // m is in log2 units; gridDim.x is H
+      lse[(static_cast<long long>(b) * gridDim.x + h) * Sq + row] =
+          m[r] * LN2 + logf(l[r]);
 #pragma unroll
     for (int j = 0; j < NO; ++j)
       *reinterpret_cast<uint32_t*>(dst + 8 * j) =
@@ -457,7 +473,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const long long* st, int B, int H, int KH, int Sq, int Sk,
            float scale, int causal, cudaStream_t stream) {
   auto kernel = flash_tc_kernel<DH>;
@@ -473,7 +489,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, H / KH,
       Sq, Sk, scale * 1.4426950408889634f, causal);
@@ -484,14 +500,15 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q, o (B, Sq, H, dh); k, v (B, Sk, KH, dh); `strides` holds the batch,
+// q, o (B, Sq, H, dh); k, v (B, Sk, KH, dh); lse null or fp32 (B, H, Sq),
+// contiguous; `strides` holds the batch,
 // sequence and head strides of q, k, v and o, in elements, in that order
 // (12 values, host memory).  dtype: 0 float32, 1 bfloat16.  variant: 0
 // "simt" (1 <= dh <= 256), 1 "tc" (bfloat16, dh 64 or 128, 16-byte
 // aligned pointers, strides multiples of 8 elements: the wrapper's rule).
 // H % KH == 0.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
+                                      const void* v, void* o, float* lse,
                                       const long long* strides, int B, int H,
                                       int KH, int Sq, int Sk, int dh,
                                       float scale, int causal, int dtype,
@@ -499,16 +516,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
     if (dtype == 1 && dh == 64)
-      return tc::launch<64>(q, k, v, o, strides, B, H, KH, Sq, Sk, scale,
-                            causal, s);
+      return tc::launch<64>(q, k, v, o, lse, strides, B, H, KH, Sq, Sk,
+                            scale, causal, s);
     if (dtype == 1 && dh == 128)
-      return tc::launch<128>(q, k, v, o, strides, B, H, KH, Sq, Sk, scale,
-                             causal, s);
+      return tc::launch<128>(q, k, v, o, lse, strides, B, H, KH, Sq, Sk,
+                             scale, causal, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, strides, B, H, KH, Sq, Sk, dh,
-                                   scale, causal, s);
-  return dispatch<float>(q, k, v, o, strides, B, H, KH, Sq, Sk, dh, scale,
-                         causal, s);
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, strides, B, H, KH, Sq,
+                                   Sk, dh, scale, causal, s);
+  return dispatch<float>(q, k, v, o, lse, strides, B, H, KH, Sq, Sk, dh,
+                         scale, causal, s);
 }

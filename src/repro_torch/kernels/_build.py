@@ -134,9 +134,13 @@ def load() -> ctypes.CDLL:
         lib.fused_sm_smem_bytes.argtypes = [i] * 5
         lib.fused_sm_smem_bytes.restype = ctypes.c_long
         lib.flash_attention_launch.argtypes = (
-            [p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [i] * 6
+            [p] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [i] * 6
             + [ctypes.c_float, i, i, i, p])
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_bwd_launch.argtypes = (
+            [p] * 10 + [ctypes.POINTER(ctypes.c_longlong)] + [i] * 6
+            + [ctypes.c_float, i, i, p])
+        lib.flash_attention_bwd_launch.restype = i
         lib.matmul_launch.argtypes = [p] * 3 + [i] * 5 + [p]
         lib.matmul_launch.restype = i
         _lib = lib

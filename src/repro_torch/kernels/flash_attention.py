@@ -27,8 +27,19 @@ both against the plain version).
   axis, and reads KV head ``h // (H // KH)`` for query head ``h``: what
   ``ops.mha`` computes, without the repeated copies.
 
-CPU tensors take the plain version (:mod:`.ref`); CUDA tensors launch the
-kernel or raise.
+Training: :class:`FlashAttention` is the kernel as a
+``torch.autograd.Function``.  Its forward launches the kernel with the
+row log-sum-exp output (``lse``, fp32 (B, H, Sq)) and saves q, k, v, o and
+lse; its backward launches :func:`flash_attention_bwd`
+(``csrc/flash_attention_bwd.cu``: dQ, dK, dV without float atomics, so
+two calls give equal bits).  :func:`flash_attention_gqa` takes the Function
+when autograd records (grad enabled and an input that requires grad) and
+the plain launch otherwise, so serving writes no lse.  The JAX package
+has no backward kernel: ``jax.grad`` differentiates its plain attention.
+
+CPU tensors take the plain versions (:mod:`.ref`: ``mha_ref``,
+``mha_lse_ref``, ``mha_bwd_ref``); CUDA tensors launch the kernels or
+raise.
 """
 from __future__ import annotations
 
@@ -37,11 +48,13 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import flash_attention_ref, mha_ref
+from .ref import flash_attention_ref, mha_bwd_ref, mha_lse_ref, mha_ref
 
 #: head widths the kernel takes (its accumulator is 4 rows x dh per lane
 #: group, in registers)
 MAX_HEAD_DIM = 256
+#: head widths the backward kernel takes
+MAX_BWD_HEAD_DIM = 128
 #: head widths the tensor-core variant is built for
 TC_HEAD_DIMS = (64, 128)
 _GRID_MAX = 65535                    # gridDim.y and .z
@@ -105,8 +118,8 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 256,
     _check_variant(variant)
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, causal=causal)
-    return _launch(q[:, :, None], k[:, :, None], v[:, :, None], causal,
-                   variant)[:, :, 0]
+    return flash_attention_gqa(q[:, :, None], k[:, :, None], v[:, :, None],
+                               causal=causal, variant=variant)[:, :, 0]
 
 
 def flash_attention_gqa(q, k, v, *, causal: bool = True, variant=None):
@@ -116,12 +129,89 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, variant=None):
     SIMT kernel."""
     _check(q, k, v)
     _check_variant(variant)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, variant)
     if not q.is_cuda:
         return mha_ref(q, k, v, causal=causal)
-    return _launch(q, k, v, causal, variant)
+    return _launch(q, k, v, causal, variant)[0]
 
 
-def _launch(q, k, v, causal: bool, forced):
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel under autograd: ``apply(q, k, v, causal,
+    variant)`` -> o, in :func:`flash_attention_gqa`'s layout.  The forward
+    saves q, k, v, o and the row log-sum-exp; the backward returns dq, dk,
+    dv (None for an input that needs no gradient) from
+    :func:`flash_attention_bwd`.  On CPU tensors both are the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, variant):
+        if q.is_cuda:
+            o, lse = _launch(q, k, v, causal, variant, want_lse=True)
+        else:
+            o, lse = mha_lse_ref(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, o, do, lse, causal=ctx.causal)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad[:3])) + (None, None)
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
+    """The flash kernel's gradient: q, o, do (B, Sq, H, dh), k, v (B, Sk,
+    KH, dh), lse (B, H, Sq) float32 from the forward -> (dq, dk, dv), dq
+    in q's dtype and dk, dv in k's.  CPU tensors take
+    :func:`.ref.mha_bwd_ref`; CUDA tensors launch
+    ``csrc/flash_attention_bwd.cu`` (1 <= dh <= 128) or raise."""
+    _check(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or \
+            lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError("flash_attention_bwd: o and do must be q's shape "
+                         "and lse (B, H, Sq)")
+    if not q.is_cuda:
+        return mha_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    B, Sq, H, dh = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    if dh > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd: dh must be <= "
+                         f"{MAX_BWD_HEAD_DIM}, got {dh}")
+    if any(not x.is_cuda or x.device != q.device for x in (k, v, o, do, lse)):
+        raise ValueError("flash_attention_bwd: every input must be on q's "
+                         "device")
+    if max(B, H, -(-Sq // _QTILE), -(-Sk // _QTILE)) > _GRID_MAX:
+        raise ValueError(f"flash_attention_bwd: B, H and S / {_QTILE} must "
+                         f"be <= {_GRID_MAX}")
+    q, k, v, o, do = (x if x.stride(-1) == 1 else x.contiguous()
+                      for x in (q, k, v, o, do))
+    do = do.to(q.dtype)
+    lse = lse.float().contiguous()
+    gq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    gk, gv = (torch.empty(k.shape, dtype=k.dtype, device=k.device)
+              for _ in range(2))
+    if q.numel() == 0:
+        return gq, gk, gv
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for x in (q, k, v, o, do, gq, gk, gv) for s in x.stride()[:3]))
+    lib = _build.load()
+    rc = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), gq.data_ptr(),
+        gk.data_ptr(), gv.data_ptr(), strides, B, H, KH, Sq, Sk, dh,
+        dh ** -0.5, int(causal), _build.DTYPES[q.dtype],
+        _build.stream_ptr(q))
+    _build.check(rc, "flash_attention_bwd")
+    _build.LAUNCHES["flash_attention_bwd"] += 1
+    return gq, gk, gv
+
+
+def _launch(q, k, v, causal: bool, forced, want_lse: bool = False):
+    """The forward kernel: (o, lse), lse None unless ``want_lse``."""
     if any(not x.is_cuda or x.device != q.device for x in (k, v)):
         raise ValueError("flash_attention: q, k, v must be on one device")
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
@@ -132,16 +222,19 @@ def _launch(q, k, v, causal: bool, forced):
                          f"<= {_GRID_MAX}")
     chosen = forced or variant(q, k, v)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if want_lse else None
     if o.numel() == 0:
-        return o
+        return o, lse
     strides = (ctypes.c_longlong * 12)(
         *(s for x in (q, k, v, o) for s in x.stride()[:3]))
     lib = _build.load()
     rc = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides, B,
-        H, KH, Sq, Sk, dh, dh ** -0.5, int(causal),
-        _build.DTYPES[q.dtype], int(chosen == "tc"), _build.stream_ptr(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if want_lse else None, strides, B, H, KH, Sq, Sk, dh,
+        dh ** -0.5, int(causal), _build.DTYPES[q.dtype], int(chosen == "tc"),
+        _build.stream_ptr(q))
     _build.check(rc, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
     _build.VARIANTS[("flash_attention", chosen)] += 1
-    return o
+    return o, lse

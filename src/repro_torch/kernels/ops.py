@@ -31,6 +31,9 @@ def mha(q, k, v, *, causal=True, bq=256, bk=256, use_kernel=True):
     TPU kernel's); the others, e.g. decode, and every shape under
     ``use_kernel=False``, take the plain oracle, aligned bottom-right as
     the JAX package's oracle is.  The two alignments agree when Sq == Sk.
+    Under autograd the kernel branch is ``flash_attention.FlashAttention``,
+    whose backward is the flash backward kernel on the card and the plain
+    backward on the CPU.
     """
     Sq, Sk = q.shape[1], k.shape[1]
     if use_kernel and tile_ok(Sq, Sk):

@@ -10,6 +10,9 @@ difference is exact on every device.
 
 ``matmul_ref`` and ``flash_attention_ref`` are the plain versions of the
 CUDA ``matmul`` and ``flash_attention`` kernels, in float32.
+``mha_lse_ref`` adds the row log-sum-exp that the kernel writes for
+training, and ``mha_bwd_ref`` is the plain version of the backward kernel
+(``flash_attention_bwd``): the explicit formulas in float32.
 """
 from __future__ import annotations
 
@@ -110,3 +113,59 @@ def mha_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
                              fold(k, Sk), fold(v, Sk), causal=causal,
                              q_offset=q_offset)
     return of.reshape(B, H, Sq, dh).transpose(1, 2)
+
+
+def _heads(x, rep: int):
+    """(B, S, KH, dh) -> (B, KH * rep, S, dh) float32, each KV head
+    repeated ``rep`` times in place (head h reads KV head h // rep)."""
+    return x.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+
+
+def _scores(q, k, causal: bool):
+    """S * scale, (B, H, Sq, Sk) float32, -1e30 where query i may not see
+    key j (``i < j`` under ``causal``, top-left as the kernel)."""
+    H, dh = q.shape[2], q.shape[3]
+    s = _heads(q, 1) @ _heads(k, H // k.shape[2]).transpose(-1, -2) \
+        * dh ** -0.5
+    if causal:
+        Sq, Sk = s.shape[-2:]
+        qi = torch.arange(Sq, device=q.device)[:, None]
+        s = s.masked_fill(qi < torch.arange(Sk, device=q.device), -1e30)
+    return s
+
+
+def mha_lse_ref(q, k, v, *, causal: bool = True):
+    """:func:`mha_ref` (top-left mask) and the row log-sum-exp the kernel
+    writes for training: (o (B, Sq, H, dh) in q's dtype, lse (B, H, Sq)
+    float32, natural log of the scaled scores' row sums)."""
+    lse = torch.logsumexp(_scores(q, k, causal), dim=-1)
+    return mha_ref(q, k, v, causal=causal), lse
+
+
+def mha_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True):
+    """Plain backward of the flash kernel, in float32.
+
+    q, o, do (B, Sq, H, dh); k, v (B, Sk, KH, dh); lse (B, H, Sq) from the
+    forward.  With ``P = exp(S scale - lse)`` (exactly 0 where masked) and
+    ``D = rowsum(dO o O)``:
+    ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P o (dP - D)``, ``dQ = dS K
+    scale``, ``dK = dS^T Q scale``, dK and dV summed over the query heads
+    that share a KV head.  Returns (dq in q's dtype, dk, dv in k's dtype)
+    in the inputs' layouts."""
+    B, Sq, H, dh = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    rep, scale = H // KH, dh ** -0.5
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+    g, qh, kh, vh = _heads(do, 1), _heads(q, 1), _heads(k, rep), \
+        _heads(v, rep)
+    delta = (g * _heads(o, 1)).sum(-1, keepdim=True)
+    dv = p.transpose(-1, -2) @ g
+    ds = p * (g @ vh.transpose(-1, -2) - delta)
+    dq = ds @ kh * scale
+    dk = ds.transpose(-1, -2) @ qh * scale
+
+    def kv_layout(x):
+        return x.reshape(B, KH, rep, Sk, dh).sum(2).transpose(1, 2) \
+            .to(k.dtype)
+
+    return dq.transpose(1, 2).to(q.dtype), kv_layout(dk), kv_layout(dv)

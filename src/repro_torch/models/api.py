@@ -1,8 +1,9 @@
 """Family-dispatched model API (port of ``repro.models.api``).
 
-``init``, ``decode_state`` and ``apply_decode`` for the dense family; the
-other families of the JAX package raise "not yet ported".  Decode state
-is the stacked KV caches, written in place by each step.
+``init``, ``param_shapes``, ``apply_train``, ``decode_state`` and
+``apply_decode`` for the dense family; the other families of the JAX
+package raise "not yet ported".  Decode state is the stacked KV caches,
+written in place by each step.
 """
 from __future__ import annotations
 
@@ -26,6 +27,19 @@ def _dense(spec: ArchSpec):
 def init(gen: torch.Generator, spec: ArchSpec):
     """Random parameters on ``gen``'s device (``transformer.init``)."""
     return transformer.init(gen, _dense(spec))
+
+
+def param_shapes(spec: ArchSpec):
+    """The parameter tree as tensors on the ``meta`` device: shapes and
+    dtypes, no storage (the JAX package's ``eval_shape`` stand-ins)."""
+    return transformer.init(torch.Generator(), _dense(spec), device="meta")
+
+
+def apply_train(params, spec: ArchSpec, batch) -> torch.Tensor:
+    """The token-mean loss of one batch ({"tokens", "labels"}, each (B, S)
+    integer)."""
+    return transformer.loss(params, _dense(spec), batch["tokens"],
+                            batch["labels"])
 
 
 def decode_state(spec: ArchSpec, batch: int, max_seq: int, *,

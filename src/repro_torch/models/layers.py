@@ -11,10 +11,14 @@ Conventions, as in the JAX package:
 * initialisation takes an explicit ``torch.Generator``; tensors are made
   on its device.
 
-Prefill attention goes through :func:`repro_torch.kernels.ops.mha`, the
-flash kernel on the card (:func:`attn_apply` says which shapes).
-``chunked_attention`` and the cross-entropies belong to training and are
-not ported yet.
+Prefill and training attention go through
+:func:`repro_torch.kernels.ops.mha`, the flash kernel on the card (its
+forward, and under autograd its backward kernel; :func:`attn_apply` says
+which shapes).  :func:`chunked_attention` is the JAX package's
+memory-efficient schedule in plain torch, each query chunk recomputed in
+the backward pass (``torch.utils.checkpoint``), as ``jax.checkpoint`` does
+there; :func:`softmax_xent_chunked` does the same for the big-vocabulary
+cross-entropy.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 
@@ -31,9 +36,11 @@ PARAM_DTYPE = torch.bfloat16
 
 
 def _he(gen: torch.Generator, shape, scale: float = 1.0,
-        dtype=PARAM_DTYPE) -> torch.Tensor:
+        dtype=PARAM_DTYPE, device=None) -> torch.Tensor:
+    """He-scaled normal weights on ``device`` (default: ``gen``'s; "meta"
+    gives shapes without storage)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    x = torch.randn(shape, generator=gen, device=gen.device,
+    x = torch.randn(shape, generator=gen, device=device or gen.device,
                     dtype=torch.float32)
     return (x * (scale / fan_in) ** 0.5).to(dtype)
 
@@ -110,6 +117,39 @@ def causal_attention(q, k, v, *, scale: Optional[float] = None,
     return out.reshape(B, S, H, dh).to(q.dtype)
 
 
+def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512):
+    """Memory-efficient attention: q in chunks of ``q_chunk`` rows, logits
+    never materialised at (S, S); each chunk is recomputed in the backward
+    pass (``torch.utils.checkpoint``), so activation memory per head drops
+    from O(S^2) to O(S * q_chunk).  Plain torch, no kernel, as the JAX
+    function is plain XLA.  q (B, S, H, dh), k/v (B, T, K, dh); the causal
+    mask aligns query i with key i.  (The JAX function's ``kv_len`` has no
+    caller and is not ported.)"""
+    B, S, H, dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    rep, scale = H // K, dh ** -0.5
+    q_chunk = min(q_chunk, S)
+    if S % q_chunk:
+        raise ValueError(f"chunked_attention: q_chunk {q_chunk} does not "
+                         f"divide S={S}")
+    qg = q.reshape(B, S // q_chunk, q_chunk, K, rep, dh)
+    keys = torch.arange(T, device=q.device)
+
+    def one_chunk(qc, qpos0: int):                  # (B, C, K, rep, dh)
+        logits = torch.einsum("bckrd,btkd->bkrct", qc.float(),
+                              k.float()) * scale
+        if causal:
+            qi = qpos0 + torch.arange(q_chunk, device=q.device)
+            logits = logits.masked_fill(qi[:, None] < keys[None, :], -1e30)
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bkrct,btkd->bckrd", p, v.float())
+        return out.to(q.dtype)
+
+    outs = [checkpoint(one_chunk, qg[:, i], i * q_chunk, use_reentrant=False)
+            for i in range(S // q_chunk)]
+    return torch.stack(outs, 1).reshape(B, S, H, dh)
+
+
 # -------------------------------------------------------------- attention block
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
@@ -119,23 +159,24 @@ class AttnConfig:
     head_dim: int
     qk_norm: bool = False
     rope_theta: float = 10000.0
-    impl: str = "reference"    # "reference" | "chunked" (not yet ported)
+    impl: str = "reference"    # "reference" | "chunked"
     q_chunk: int = 512
     softmax_dtype: str = "f32"  # "f32" | "bf16"
 
 
-def attn_init(gen: torch.Generator, cfg: AttnConfig, lead=()):
+def attn_init(gen: torch.Generator, cfg: AttnConfig, lead=(), device=None):
     """Attention weights; ``lead`` prepends axes (the stacked ``L``)."""
     D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    device = device or gen.device
     p = {
-        "wq": _he(gen, (*lead, D, H * dh)),
-        "wk": _he(gen, (*lead, D, K * dh)),
-        "wv": _he(gen, (*lead, D, K * dh)),
-        "wo": _he(gen, (*lead, H * dh, D)),
+        "wq": _he(gen, (*lead, D, H * dh), device=device),
+        "wk": _he(gen, (*lead, D, K * dh), device=device),
+        "wv": _he(gen, (*lead, D, K * dh), device=device),
+        "wo": _he(gen, (*lead, H * dh, D), device=device),
     }
     if cfg.qk_norm:
-        p["q_norm"] = rmsnorm_init(dh, device=gen.device, lead=lead)
-        p["k_norm"] = rmsnorm_init(dh, device=gen.device, lead=lead)
+        p["q_norm"] = rmsnorm_init(dh, device=device, lead=lead)
+        p["k_norm"] = rmsnorm_init(dh, device=device, lead=lead)
     return p
 
 
@@ -148,6 +189,7 @@ def attn_apply(p, cfg: AttnConfig, x, positions, *, kv_cache=None,
 
     * no cache, ``impl="reference"``, f32 softmax: ``ops.mha`` (causal);
       the bf16 softmax: the plain :func:`causal_attention`;
+      ``impl="chunked"``: :func:`chunked_attention` (causal, ``q_chunk``);
     * cache, ``cache_index == 0`` and S > 1 (the prefill step):
       ``ops.mha`` over the live prefix ``ck[:, :S]``, causal — the same
       function as the masked f32 attention over the whole cache that the
@@ -169,9 +211,9 @@ def attn_apply(p, cfg: AttnConfig, x, positions, *, kv_cache=None,
     k = apply_rope(k, positions, cfg.rope_theta)
     if kv_cache is None:
         if cfg.impl == "chunked":
-            raise NotImplementedError(
-                "attn_impl='chunked' is not yet ported to repro_torch")
-        if cfg.softmax_dtype == "f32":
+            out = chunked_attention(q, k, v, causal=True,
+                                    q_chunk=cfg.q_chunk)
+        elif cfg.softmax_dtype == "f32":
             out = ops.mha(q, k, v, causal=True)
         else:
             out = causal_attention(q, k, v, softmax_dtype=cfg.softmax_dtype)
@@ -196,9 +238,10 @@ def attn_apply(p, cfg: AttnConfig, x, positions, *, kv_cache=None,
 
 
 # ------------------------------------------------------------------- ffn
-def ffn_init(gen: torch.Generator, d: int, f: int, lead=()):
-    return {"wi": _he(gen, (*lead, d, f)), "wg": _he(gen, (*lead, d, f)),
-            "wo": _he(gen, (*lead, f, d))}
+def ffn_init(gen: torch.Generator, d: int, f: int, lead=(), device=None):
+    return {"wi": _he(gen, (*lead, d, f), device=device),
+            "wg": _he(gen, (*lead, d, f), device=device),
+            "wo": _he(gen, (*lead, f, d), device=device)}
 
 
 def ffn_apply(p, x):
@@ -207,8 +250,9 @@ def ffn_apply(p, x):
 
 
 # ------------------------------------------------------------- embedding
-def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
-    x = torch.randn((vocab, d), generator=gen, device=gen.device,
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               device=None) -> torch.Tensor:
+    x = torch.randn((vocab, d), generator=gen, device=device or gen.device,
                     dtype=torch.float32)
     return (x * 0.02).to(PARAM_DTYPE)
 
@@ -220,3 +264,45 @@ def embed_apply(table, tokens):
 def unembed_apply(table, x):
     """Tied unembedding: logits in fp32 for a stable softmax."""
     return torch.einsum("bsd,vd->bsv", x.float(), table.float())
+
+
+# ---------------------------------------------------------------- losses
+def _nll(logits, labels, z_loss: float):
+    """Per-position loss and mask: ``lse - gold + z_loss * lse^2``; labels
+    < 0 are padding (their loss is computed at label 0 and masked)."""
+    mask = labels >= 0
+    gold_idx = labels.clamp(min=0).long()[..., None]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, gold_idx)[..., 0]
+    return lse - gold + z_loss * lse ** 2, mask
+
+
+def softmax_xent_chunked(head, x, labels, *, chunk: int = 512,
+                         z_loss: float = 1e-4):
+    """Cross-entropy without materialising (B, S, V) logits: each
+    sequence chunk is projected (fp32, as :func:`unembed_apply`), reduced,
+    and recomputed in the backward pass (``torch.utils.checkpoint``).
+    x (B, S, D), head (V, D), labels (B, S) with < 0 as padding."""
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"softmax_xent_chunked: chunk {chunk} does not "
+                         f"divide S={S}")
+
+    def one(xi, li):
+        logits = torch.einsum("bsd,vd->bsv", xi.float(), head.float())
+        nll, mask = _nll(logits, li, z_loss)
+        return (nll * mask).sum(), mask.sum()
+
+    sums = [checkpoint(one, x[:, i:i + chunk], labels[:, i:i + chunk],
+                       use_reentrant=False) for i in range(0, S, chunk)]
+    nll = torch.stack([n for n, _ in sums]).sum()
+    count = torch.stack([c for _, c in sums]).sum()
+    return nll / count.clamp(min=1)
+
+
+def softmax_xent(logits, labels, *, z_loss: float = 1e-4):
+    """Cross-entropy with z-loss over (..., V) fp32 logits; labels < 0
+    are padding."""
+    nll, mask = _nll(logits, labels, z_loss)
+    return (nll * mask).sum() / mask.sum().clamp(min=1)

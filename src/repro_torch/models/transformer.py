@@ -2,15 +2,33 @@
 the llama/qwen family).
 
 Layer weights are stacked on a leading ``L`` axis as in the JAX package;
-where it scans over them, :func:`forward` loops, one layer at a time.
-Mixture-of-experts layers and the training ``loss`` are not ported yet.
+where it scans over them, :func:`forward` and :func:`loss` loop, one layer
+at a time.  :func:`loss` applies the remat policy to each layer as the
+JAX package applies it to its scan body:
+
+* ``"none"``: nothing is recomputed;
+* ``"full"``: ``torch.utils.checkpoint`` of the whole layer (non-reentrant):
+  only its input is kept, the layer runs again in the backward pass;
+* ``"dots"``: a selective checkpoint that keeps the outputs of the weight
+  products (``aten.mm``, the 2-D matrix products that the (B, S, D) @ (D,
+  F) projections lower to: the counterpart of
+  ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest,
+  attention included.
+
+So on the card one training step launches the flash forward once a layer
+under ``"none"`` and twice under ``"dots"`` and ``"full"`` (the recompute),
+and the flash backward once a layer.  Mixture-of-experts layers are not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 
@@ -29,13 +47,12 @@ class LMConfig:
     rope_theta: float = 10000.0
     moe: Optional[object] = None   # MoE is not yet ported: must stay None
     tie_embeddings: bool = True
-    # the JAX package's remat policy and loss chunking; inference has no
-    # backward pass, so the port keeps them only as configuration
+    # remat policy of each layer in ``loss``: "none" | "dots" | "full"
     remat: str = "dots"
     attn_impl: str = "reference"   # "reference" | "chunked"
     q_chunk: int = 512
     softmax_dtype: str = "f32"     # "f32" | "bf16" (perf variant)
-    loss_chunk: int = 0
+    loss_chunk: int = 0            # >0: chunked big-vocab cross-entropy
 
     @property
     def dh(self) -> int:
@@ -69,23 +86,25 @@ def _dense_only(cfg: LMConfig) -> None:
             "repro_torch")
 
 
-def init(gen: torch.Generator, cfg: LMConfig):
-    """Random bf16 parameters on ``gen``'s device, the JAX package's tree
-    with every layer weight stacked on a leading ``L`` axis."""
+def init(gen: torch.Generator, cfg: LMConfig, device=None):
+    """Random bf16 parameters on ``device`` (default: ``gen``'s), the JAX
+    package's tree with every layer weight stacked on a leading ``L``
+    axis.  ``device="meta"`` gives the shapes without storage."""
     _dense_only(cfg)
-    lead, dev = (cfg.n_layers,), gen.device
+    lead, dev = (cfg.n_layers,), device or gen.device
     p = {
-        "embed": L.embed_init(gen, cfg.vocab, cfg.d_model),
+        "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, device=dev),
         "layers": {
             "ln1": L.rmsnorm_init(cfg.d_model, device=dev, lead=lead),
             "ln2": L.rmsnorm_init(cfg.d_model, device=dev, lead=lead),
-            "attn": L.attn_init(gen, cfg.attn, lead=lead),
-            "ffn": L.ffn_init(gen, cfg.d_model, cfg.d_ff, lead=lead),
+            "attn": L.attn_init(gen, cfg.attn, lead=lead, device=dev),
+            "ffn": L.ffn_init(gen, cfg.d_model, cfg.d_ff, lead=lead,
+                              device=dev),
         },
         "final_norm": L.rmsnorm_init(cfg.d_model, device=dev),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = L.embed_init(gen, cfg.vocab, cfg.d_model)
+        p["lm_head"] = L.embed_init(gen, cfg.vocab, cfg.d_model, device=dev)
     return p
 
 
@@ -128,3 +147,55 @@ def forward(params, cfg: LMConfig, tokens, *, kv_caches=None,
     head = params.get("lm_head", params["embed"])
     logits = L.unembed_apply(head, x)
     return (logits, kv_caches) if kv_caches is not None else logits
+
+
+# ------------------------------------------------------------------ training
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``"dots"``: keep what the weight
+    products (2-D ``aten.mm``) return, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: LMConfig, fn):
+    """``fn`` under the remat policy ``cfg.remat``."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
+def _trunk(params, cfg: LMConfig, tokens):
+    """Embedding, the layers under the remat policy, the final norm:
+    (B, S, D)."""
+    x = L.embed_apply(params["embed"], tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None, :].expand(B, S)
+
+    def body(x, lp):
+        return _block(cfg, lp, x, positions)[0]
+
+    body = _remat(cfg, body)
+    for i in range(cfg.n_layers):
+        x = body(x, layer_params(params["layers"], i))
+    return L.rmsnorm(params["final_norm"], x)
+
+
+def loss(params, cfg: LMConfig, tokens, labels):
+    """Training loss, the token mean (labels < 0 are padding); the chunked
+    big-vocabulary cross-entropy when ``cfg.loss_chunk > 0``.  (The JAX
+    function's ``prefix_embed`` / ``prefix_drop`` serve the VLM family,
+    not ported yet.)"""
+    _dense_only(cfg)
+    x = _trunk(params, cfg, tokens)
+    head = params.get("lm_head", params["embed"])
+    if cfg.loss_chunk <= 0:
+        return L.softmax_xent(L.unembed_apply(head, x), labels)
+    return L.softmax_xent_chunked(head, x, labels, chunk=cfg.loss_chunk)

@@ -565,3 +565,122 @@ def test_mixed_drain_attribution_on_card(card):
     after = obs.jit_delta(before, obs.jit_summary())
     assert set(after) == {"_total"}
     assert after["_total"]["jit_cache_misses"] == 0
+
+
+# (B, Sq, Sk, H, KH, dh, dtype, causal): the training shapes (qwen3 cut to
+# batch 2, smollm's 15/5 heads of 64), a ragged length, full attention,
+# float32 at dh 16 and Sq != Sk (the top-left causal mask)
+FLASH_BWD_SHAPES = [
+    (2, 256, 256, 16, 8, 128, torch.bfloat16, True),
+    (2, 200, 200, 15, 5, 64, torch.bfloat16, True),
+    (2, 128, 128, 4, 4, 64, torch.bfloat16, False),
+    (1, 70, 70, 4, 2, 16, torch.float32, True),
+    (1, 40, 72, 4, 1, 32, torch.float32, True),
+]
+
+
+def _bwd_inputs(card, B, Sq, Sk, H, KH, dh, dtype, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed + Sq + dh)
+    q = torch.randn((B, Sq, H, dh), generator=g, device=card).to(dtype)
+    k, v = (torch.randn((B, Sk, KH, dh), generator=g, device=card).to(dtype)
+            for _ in range(2))
+    do = torch.randn((B, Sq, H, dh), generator=g, device=card).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,dh,dtype,causal", FLASH_BWD_SHAPES)
+def test_flash_backward_kernel_matches_plain(card, B, Sq, Sk, H, KH, dh,
+                                             dtype, causal):
+    """The forward's lse against the plain one (1e-4), and dq, dk, dv of
+    the backward kernel against ``mha_bwd_ref`` on the same q, k, v, o,
+    dO and lse: within 2e-2 (bf16) or 1e-3 (float32) of each gradient's
+    largest magnitude; two calls give equal bits."""
+    from repro_torch.kernels.ref import mha_bwd_ref, mha_lse_ref
+    q, k, v, do = _bwd_inputs(card, B, Sq, Sk, H, KH, dh, dtype)
+    o, lse = tfa._launch(q, k, v, causal, None, want_lse=True)
+    torch.testing.assert_close(lse, mha_lse_ref(q, k, v, causal=causal)[1],
+                               rtol=1e-4, atol=1e-4)
+    _build.LAUNCHES.clear()
+    got = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    again = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"flash_attention_bwd": 2}
+    want = mha_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-3
+    for a, b, w, x in zip(got, again, want, (q, k, v)):
+        assert a.dtype == x.dtype and a.shape == x.shape
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol,
+                                   atol=tol * float(w.float().abs().max()))
+
+
+def test_flash_attention_function_on_card(card):
+    """``ops.mha`` under autograd launches the forward and the backward
+    kernel once each; the gradients of a strided bf16 q, k, v (views of
+    one projection) match autograd through the plain attention, and an
+    input without grad gets none."""
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn((2, 256, 32, 128), generator=g, device=card) \
+        .bfloat16().requires_grad_(True)
+    q, k, v = x[:, :, :16], x[:, :, 16:24], x[:, :, 24:]
+    do = torch.randn((2, 256, 16, 128), generator=g, device=card).bfloat16()
+    _build.LAUNCHES.clear()
+    got = torch.autograd.grad(ops.mha(q, k, v), x, do)[0]
+    assert dict(_build.LAUNCHES) == {"flash_attention": 1,
+                                     "flash_attention_bwd": 1}
+    want = torch.autograd.grad(mha_ref(q.float(), k.float(), v.float()), x,
+                               do.float())[0]
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2 * float(want.float().abs().max()))
+    qd = q.detach().requires_grad_(True)
+    kd = k.detach()
+    out = ops.mha(qd, kd, v.detach())
+    assert out.grad_fn.apply(do)[1] is None
+    dq = torch.autograd.grad(out, qd, do)[0]
+    torch.testing.assert_close(dq.float(), want[:, :, :16].float(),
+                               rtol=2e-2,
+                               atol=2e-2 * float(want.float().abs().max()))
+
+
+def test_reduced_train_step_on_card_matches_cpu(card):
+    """One train step of the reduced qwen3 (seq 64) on the card against
+    the CPU's plain path from the same parameters and batch: loss rtol
+    1e-3, every gradient leaf rtol 5e-2 atol 5e-3 (the CPU tests'
+    gradient tolerance), every gradient norm 5e-2, and the parameters
+    within 2 lr plus one bf16 ulp (2^-7 of the larger): Adam's first step
+    moves each entry by lr times the sign of its gradient, so an entry
+    whose gradient is near 0 may move either way."""
+    from repro_torch import configs, tree as T
+    from repro_torch.launch.steps import (build_loss_and_grads,
+                                          build_train_step)
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, opt_init
+    spec = configs.reduced(configs.get("qwen3-0.6b"))
+    params = api.init(torch.Generator().manual_seed(0), spec)
+    toks = torch.randint(0, 256, (2, 65), generator=torch.Generator()
+                         .manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = build_train_step(spec, OptConfig(lr=1e-2, warmup=1))
+    outs = []
+    for dev in ("cpu", card):
+        p = T.tree_map(lambda t: t.to(dev), params)
+        _build.LAUNCHES.clear()
+        outs.append(step(p, opt_init(p, OptConfig()),
+                         {k: b.to(dev) for k, b in batch.items()}))
+    assert dict(_build.LAUNCHES) == {"flash_attention": 4,
+                                     "flash_attention_bwd": 2}
+    (pc, _, sc), (pg, _, sg) = outs
+    torch.testing.assert_close(sg["loss"].cpu(), sc["loss"], rtol=1e-3,
+                               atol=0)
+    for a, b in zip(T.leaves(sg["grad_norms"]), T.leaves(sc["grad_norms"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=5e-2, atol=1e-6)
+    for a, b in zip(T.leaves(pg), T.leaves(pc)):
+        a, b = a.cpu().float(), b.float()
+        assert ((a - b).abs() <= 2e-2 + 2 ** -7 * torch.maximum(
+            a.abs(), b.abs())).all()
+    grads = [build_loss_and_grads(spec)(
+        T.tree_map(lambda t: t.to(dev), params),
+        {k: b.to(dev) for k, b in batch.items()})[1] for dev in ("cpu", card)]
+    for a, b in zip(T.leaves(grads[1]), T.leaves(grads[0])):
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=5e-2,
+                                   atol=5e-3)

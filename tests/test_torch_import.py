@@ -44,7 +44,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.compiler.kernels.scan",
             "repro_torch.compiler.kernels.spmv",
             "repro_torch.launch.gpgpu_compile",
-            "repro_torch.obs.jitprof"} <= set(mods)
+            "repro_torch.obs.jitprof", "repro_torch.tree",
+            "repro_torch.configs.smollm_360m", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.ckpt",
+            "repro_torch.ckpt.checkpoint", "repro_torch.launch.steps",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -115,6 +120,22 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
         serve.main(["--reduced", "--gen", "1", "--prompt-len", "4"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.decode_state(spec, 1, 8)
+
+
+def test_training_entry_point_raises_without_a_card(monkeypatch):
+    """The train CLI defaults to the card; ``--device cpu`` runs."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen3-0.6b", "--reduced", "--steps", "1"])
+    params = train.main(["--arch", "qwen3-0.6b", "--reduced", "--steps",
+                         "1", "--seq", "16", "--batch", "2", "--device",
+                         "cpu"])
+    assert params["embed"].device.type == "cpu"
+    with pytest.raises(SystemExit, match="vlm/audio"):
+        spec = train.configs.ArchSpec(name="x", family="vlm", cfg=None)
+        monkeypatch.setattr(train.configs, "get", lambda name: spec)
+        train.main(["--device", "cpu"])
 
 
 def test_serving_entry_points_raise_without_a_card(monkeypatch):
