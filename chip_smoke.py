@@ -128,22 +128,24 @@ Phases, each printed as it ends:
    drain equal to the CPU plain path; the build attribution of a drain
    from cleared caches (misses in the 64- and the 96-instruction code
    buckets) and of the same drain again (no miss);
-17. training (``[train]``): the flash backward kernel against its plain
-   version (``mha_bwd_ref``) at five shapes (qwen3's training shape,
+17. training (``[train]``): the flash backward kernels against their
+   plain version (``mha_bwd_ref``) at five shapes (qwen3's training shape,
    smollm's 15/5 heads of 64, float32 dh 16, a ragged S=200, full
-   attention), two calls bit-equal; ``repro_torch.launch.train.main``
+   attention), each by the rule's variant (``"tc"`` for the four bf16
+   shapes, ``"simt"`` for float32) and the bf16 ones by the forced
+   ``"simt"`` too, two calls bit-equal; ``repro_torch.launch.train.main``
    trains qwen3-0.6b at full width (28 layers, 596,042,752 random bf16
    parameters from seed 0) for 6 steps of 8 x 512 tokens, every loss and
    gradient norm finite, the flash launches exactly what the remat policy
-   predicts; one ``build_train_step`` step with every gradient leaf
+   predicts, every forward and backward the ``"tc"`` variant; one ``build_train_step`` step with every gradient leaf
    non-zero in every layer, and the same step with the plain attention in
    the kernel's place; a reduced step on the card against the CPU plain
    path; ``--die-at 9`` then ``--restore auto`` at ``--reduced``, the
    final parameters bit-exact against an uninterrupted run; one
    full-width step under ``torch.profiler`` (device ms, launches, busy
-   share, tokens/s, top operations), and the backward kernel's time at
-   the training shape beside the plain version and the backward of
-   ``scaled_dot_product_attention``.
+   share, tokens/s, top operations), and the backward kernels' time at
+   the training shape, ``"tc"`` and ``"simt"`` in turns, beside the plain
+   version and the backward of ``scaled_dot_product_attention``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are on the card named in the
@@ -2015,19 +2017,24 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 5e-2
 
 
 def bwd_case(g, B, S, H, KH, dh, dtype, causal):
-    """Inputs of one backward call, and the forward's o and lse from the
-    kernel (the variant the rule picks)."""
+    """Inputs of one backward call, the forward's o and lse from the
+    kernel (the variant the rule picks), and the backward's variant by
+    the rule."""
     from repro_torch.kernels import flash_attention as fa
     q = rand(g, (B, S, H, dh), dtype)
     k, v = (rand(g, (B, S, KH, dh), dtype) for _ in range(2))
     do = rand(g, (B, S, H, dh), dtype)
     o, lse = fa._launch(q, k, v, causal, None, want_lse=True)
-    return q, k, v, o, do, lse, fa.variant(q, k, v)
+    return q, k, v, o, do, lse, fa.variant(q, k, v, o, do)
 
 
 def phase_flash_bwd_vs_plain():
-    """The backward kernel at the five shapes against ``mha_bwd_ref``;
-    two calls give equal bits.  Returns the largest absolute error."""
+    """The backward kernels at the five shapes against ``mha_bwd_ref``,
+    by the rule's variant (the tensor-core one for bf16 at dh 64 and 128,
+    the SIMT one for float32 dh 16) and, where the rule picks ``"tc"``,
+    by the forced SIMT one too; two calls give equal bits and each launch
+    took the variant named.  Returns the largest absolute error."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import mha_bwd_ref, mha_lse_ref
     g = torch.Generator(device="cuda").manual_seed(17)
@@ -2035,34 +2042,51 @@ def phase_flash_bwd_vs_plain():
     for tag, B, S, H, KH, dh, dtype, causal in BWD_SHAPES:
         q, k, v, o, do, lse, var = bwd_case(g, B, S, H, KH, dh, dtype,
                                             causal)
+        rule = "tc" if dtype == torch.bfloat16 and dh in fa.TC_HEAD_DIMS \
+            else "simt"
+        if var != rule:
+            raise AssertionError(f"flash_attention_bwd {tag}: the rule "
+                                 f"picked {var}, want {rule}")
         lse_err = (lse - mha_lse_ref(q, k, v, causal=causal)[1]).abs() \
             .max().item()
         if lse_err > 1e-4 * max(1.0, lse.abs().max().item()):
             raise AssertionError(f"flash lse {tag}: error {lse_err}")
-        got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
-        again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
-        torch.cuda.synchronize()
         want = mha_bwd_ref(q, k, v, o, do, lse, causal=causal)
-        rels = []
-        for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
-            if not torch.equal(a, b):
-                raise AssertionError(f"flash_attention_bwd {tag} {name}: "
-                                     f"two calls differ")
-            err = (a.float() - w.float()).abs().max().item()
-            scale = w.float().abs().max().item()
-            if not err <= BWD_TOL[dtype] * scale:
-                raise AssertionError(f"flash_attention_bwd {tag} {name}: "
-                                     f"error {err} over {scale}")
-            max_err = max(max_err, err)
-            rels.append(err / scale)
-        lines.append(f"{tag} (B {B}, S {S}, {H}/{KH} heads, dh {dh}, "
-                     f"{str(dtype)[6:]}, causal={causal}, forward {var}): "
-                     f"lse {lse_err:.1e}, dq/dk/dv "
-                     + "/".join(f"{r:.1e}" for r in rels))
-        del q, k, v, o, do, lse, got, again, want
+        runs = [(var, None)] + ([("simt", "simt")] if var == "tc" else [])
+        for name_v, forced in runs:
+            _build.VARIANTS.clear()
+            got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                         variant=forced)
+            again = fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                           causal=causal, variant=forced)
+            torch.cuda.synchronize()
+            if variant_counts() != {("flash_attention_bwd", name_v): 2}:
+                raise AssertionError(f"flash_attention_bwd {tag}: launched "
+                                     f"{variant_counts()}, want {name_v}")
+            rels = []
+            for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"flash_attention_bwd {tag} "
+                                         f"{name_v} {name}: two calls differ")
+                err = (a.float() - w.float()).abs().max().item()
+                scale = w.float().abs().max().item()
+                if not err <= BWD_TOL[dtype] * scale:
+                    raise AssertionError(f"flash_attention_bwd {tag} "
+                                         f"{name_v} {name}: error {err} over "
+                                         f"{scale}")
+                max_err = max(max_err, err)
+                rels.append(err / scale)
+            lines.append(f"{tag} (B {B}, S {S}, {H}/{KH} heads, dh {dh}, "
+                         f"{str(dtype)[6:]}, causal={causal}) {name_v}"
+                         f"{' forced' if forced else ''}: lse "
+                         f"{lse_err:.1e}, dq/dk/dv "
+                         + "/".join(f"{r:.1e}" for r in rels))
+            del got, again
+        del q, k, v, o, do, lse, want
     log("[flash_attention_bwd] vs mha_bwd_ref, error over each gradient's "
         "largest magnitude (tolerance bf16 2e-2, f32 1e-3), two calls "
-        "bit-equal: " + "; ".join(lines) + f"; max_abs_err {max_err:.3e}")
+        "bit-equal, each launch the variant named: " + "; ".join(lines)
+        + f"; max_abs_err {max_err:.3e}")
     return max_err
 
 
@@ -2122,9 +2146,11 @@ def phase_train(launches, smi):
     if counts != want:
         raise AssertionError(f"train: launches {counts}, the remat policy "
                              f"{cfg.remat!r} predicts {want}")
-    if set(_build.VARIANTS) != {("flash_attention", "tc")}:
-        raise AssertionError(f"train: forward variants "
-                             f"{dict(_build.VARIANTS)}")
+    if dict(_build.VARIANTS) != {
+            ("flash_attention", "tc"): want["flash_attention"],
+            ("flash_attention_bwd", "tc"): want["flash_attention_bwd"]}:
+        raise AssertionError(f"train: variants {dict(_build.VARIANTS)}, "
+                             f"want every launch tc")
     if len(stats) != steps or not all(np.isfinite(x) for s in stats
                                       for x in s):
         raise AssertionError(f"train: step lines {stats}")
@@ -2141,7 +2167,7 @@ def phase_train(launches, smi):
         f"{[round(s[1], 3) for s in stats]}, all finite; wall {wall:.1f} s; "
         f"launches {counts} == remat {cfg.remat!r}'s prediction ({per_step[0]}"
         f" forward, {per_step[1]} backward a layer a step), every forward "
-        f"the tc variant; peak memory {peak_gb:.1f} GB; {smi}")
+        f"and every backward the tc variant; peak memory {peak_gb:.1f} GB; {smi}")
     del params
 
     # (3) one step by build_train_step: every gradient non-zero; the same
@@ -2284,18 +2310,33 @@ def phase_train(launches, smi):
 
 
 def time_flash_bwd(launches_on_path, max_err):
-    """The backward kernel at the training shape (B 8, S 512, 16/8 heads,
-    dh 128, bf16, causal) beside its plain version and the backward of
-    ``scaled_dot_product_attention`` on the same inputs."""
+    """The backward kernels at the training shape (B 8, S 512, 16/8
+    heads, dh 128, bf16, causal), the tensor-core and the SIMT variant in
+    turns (tc, simt, simt, tc; the lower reading of each), beside the
+    plain version and the backward of ``scaled_dot_product_attention`` on
+    the same inputs."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import mha_bwd_ref
     _, B, S, H, KH, dh, dtype, causal = BWD_SHAPES[0]
     g = torch.Generator(device="cuda").manual_seed(18)
-    q, k, v, o, do, lse, _ = bwd_case(g, B, S, H, KH, dh, dtype, causal)
-    ms, ev_ms = timed(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse),
-                      10)
+    q, k, v, o, do, lse, var = bwd_case(g, B, S, H, KH, dh, dtype, causal)
+    runs = {"tc": (lambda: fa.flash_attention_bwd(q, k, v, o, do, lse), 20),
+            "simt": (lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                    variant="simt"), 5)}
+    _build.VARIANTS.clear()
+    reads = {"tc": [], "simt": []}
+    for name in ("tc", "simt", "simt", "tc"):
+        fn, reps = runs[name]
+        reads[name].append(device_ms(fn, reps))
+    if var != "tc" or set(variant_counts()) != {
+            ("flash_attention_bwd", "tc"), ("flash_attention_bwd", "simt")}:
+        raise AssertionError(f"time_flash_bwd: rule {var}, launched "
+                             f"{variant_counts()}")
+    ms, simt_ms = min(reads["tc"]), min(reads["simt"])
+    ev_ms = event_ms(runs["tc"][0], 10)
     plain_ms = device_ms(lambda: mha_bwd_ref(q, k, v, o, do, lse), 3)
     qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
@@ -2326,19 +2367,27 @@ def time_flash_bwd(launches_on_path, max_err):
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     flops = 5 * 2 * dh * pairs               # S, dP, dV, dQ, dK
     bound_ms, by, peak = bound(nbytes, flops, dtype)
+    share = {"tc": bound_ms / ms, "simt": bound_ms / simt_ms}
     log(f"[timing] flash_attention_bwd B={B} S={S} H={H}/{KH} dh={dh} bf16 "
-        f"causal, device (events, back to back): {ms:.4f} ms "
-        f"({ev_ms:.4f}), plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention backward by backend "
-        + ", ".join(f"{n} {t:.4f} ms" for n, t in by_backend.items())
+        f"causal, device (in turns tc, simt, simt, tc: tc "
+        + ", ".join(f"{t:.4f}" for t in reads["tc"]) + " ms, simt "
+        + ", ".join(f"{t:.4f}" for t in reads["simt"]) + " ms): "
+        f"tc {ms:.4f} ms (events, back to back, {ev_ms:.4f}; "
+        f"{share['tc']:.1%} of the bound), simt {simt_ms:.4f} ms "
+        f"({share['simt']:.1%} of the bound; {simt_ms / ms:.1f}x tc), plain "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention backward by "
+        f"backend " + ", ".join(f"{n} {t:.4f} ms" for n, t in
+                                by_backend.items())
         + f" (library_ms: {lib_name}); bound {bound_ms:.5f} ms ({nbytes} B, "
-        f"{flops} FLOP, {by}; peak {peak}); {ms / lib_ms:.1f}x the library")
-    return dict(name="flash_attention_bwd", route="cuda",
+        f"{flops} FLOP, {by}; peak {peak}); tc {ms / lib_ms:.2f}x the "
+        f"library")
+    return dict(name="flash_attention_bwd", route="cuda", variant="tc",
                 source="src/repro_torch/csrc/flash_attention_bwd.cu",
                 replaces=FLASH_BWD_REPLACES, launches=launches_on_path,
                 max_abs_err=max_err, ms=ms, event_ms=ev_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                library_ms=lib_ms, library_backend=lib_name)
+                library_ms=lib_ms, library_backend=lib_name,
+                variant_ms={"tc": ms, "simt": simt_ms}, bound_share=share)
 
 
 def main() -> int:

@@ -290,27 +290,17 @@ template <int DH>
 struct Tile {
   static constexpr int LD = DH + 8;     // padded row, elements
   static constexpr int SIZE = BK * LD;  // elements of one 64-row tile
-  static constexpr int CH = DH / 8;     // 16-byte chunks of a row
   // two stages of K and V; Q borrows tile 2 (stage 1's K) at the start
   static constexpr size_t SMEM = 4 * SIZE * sizeof(bf16);
 };
 
-// rows row0 .. row0+63 of one head into a padded tile by 16-byte async
-// copies; rows at or past n are zero-filled (the source is then row 0,
-// which is valid, and reads no byte)
+// rows row0 .. row0+63 of one head into a padded tile (mma.cuh)
 template <int DH>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long stride, int row0,
                                           int n) {
-  using T = Tile<DH>;
-#pragma unroll
-  for (int e = 0; e < BK * T::CH / THREADS; ++e) {
-    const int i = e * THREADS + threadIdx.x;
-    const int r = i / T::CH, c = i % T::CH, row = row0 + r;
-    const bool ok = row < n;
-    mma::cp_async16(dst + r * T::LD + c * 8,
-                    src + (ok ? row * stride : 0) + c * 8, ok ? 16 : 0);
-  }
+  mma::cp_async_rows<BK, DH, Tile<DH>::LD, THREADS>(dst, src, stride, row0,
+                                                     n);
 }
 
 template <int DH>

@@ -1,5 +1,6 @@
 // flash_attention_bwd: the gradient of the flash-attention kernel
-// (flash_attention.cu) as CUDA kernels for Hopper (sm_90a).
+// (flash_attention.cu) as CUDA kernels for Hopper (sm_90a), in two
+// variants.
 //
 // The JAX package has no backward kernel: jax.grad differentiates the plain
 // causal_attention (repro/models/layers.py:62), and its Pallas kernel
@@ -20,33 +21,79 @@
 // KH, dh), each with its own batch, sequence and head strides and a
 // contiguous last axis; float32 or bfloat16, sums in fp32; dh <= 128.
 //
-// Deterministic: no float atomics.  One CTA per (64-key tile, KV head,
-// batch) owns its dK and dV rows and loops over the query heads of its KV
-// head and over the query tiles in a fixed order; one CTA per (64-query
-// tile, head, batch) owns its dQ rows and loops over the KV tiles (up to
-// the diagonal under `causal`).  Both recompute S and dP from q, k, v and
-// dO; two calls on the same inputs give equal bits.
+// Deterministic in both variants: no float atomics.  One CTA per (64-key
+// tile, KV head, batch) owns its dK and dV rows and loops over the query
+// heads of its KV head and over the query tiles in a fixed order; one CTA
+// per (64-query tile, head, batch) owns its dQ rows and loops over the KV
+// tiles (up to the diagonal under `causal`).  Both recompute S and dP
+// from q, k, v and dO (seven products where the function needs five); two
+// calls on the same inputs give equal bits.
 //
 // What bounds it: at the training shape (B 8, S 512, H 16, KH 8, dh 128,
 // bf16, causal) the function moves 100.9 MB (q, k, v, o, dO, lse read
 // once, dq, dk, dv written once: 0.030 ms at 3.35 TB/s) and does five
 // products over the causal half, 21.5 GFLOP (0.022 ms at the bf16
-// tensor-core rate of 989 TFLOP/s): the memory rate bounds it.  This
-// kernel is the simple one: SIMT fp32 FMAs from shared memory, like the
-// forward's "simt" variant, with every product recomputed once per
-// kernel, so it runs far from that bound; mma.sync / wgmma fed by
-// cp.async or TMA are later work.
+// tensor-core rate of 989 TFLOP/s): the memory rate bounds the function.
+// The kernels recompute S and dP and read q, dO (dkv) and k, v (dq) once
+// per tile pair from the L2, so what bounds them is the tensor-core and
+// ldmatrix issue rate of mma.sync: about 34 GFLOP of m16n8k16 products at
+// that shape, the diagonal tiles' masked halves included.
 //
-// Each CTA has 256 threads: 16 row groups g x 16 column lanes.  For a
-// 64 x 64 tile of S or dP, thread (g, lane) owns rows 4g..4g+3 and keys
-// lane + 16j (j < 4), as in the forward's SIMT variant; the products
-// read rows of q/dO and k/v staged in shared memory as fp32 with an odd
-// row stride, so the 16 rows a half-warp reads fall in distinct banks.
-// For the accumulators, thread (g, lane) owns rows (keys in dkv_kernel,
-// queries in dq_kernel) 4g..4g+3 and columns lane + 16j (j < dh / 16),
-// in registers; P and dS pass through shared memory between the two.
+// Variant "tc" (dkv_tc_kernel, dq_tc_kernel, delta_tc_kernel; bf16, dh 64
+// or 128, 16-byte aligned rows of q, k, v, o and dO), what training runs.
+// Each CTA has 4 warps and 16 rows a warp, on mma.sync m16n8k16 (bf16 in,
+// fp32 accumulator) with the helpers of mma.cuh, as the forward's "tc".
+//  - dkv: a warp owns 16 keys.  It works in the transposed orientation,
+//    S^T = K Q^T and dP^T = V dO^T, with K and V the A operand (ldmatrix
+//    from the K and V tiles, loaded once) and Q and dO the "col" B operand
+//    (ldmatrix from the tiles as they lie).  P^T = exp2(S^T scale log2 e -
+//    lse log2 e) and dS^T = P^T o (dP^T - D) are formed on the accumulator
+//    fragments (lse and D are per query, a column here, read as float2
+//    from a 64-entry row in shared memory), masked to exactly 0, rounded
+//    to bf16 and packed in registers as A fragments (two neighbouring C
+//    fragments are one A fragment), then dV += P^T dO and dK += dS^T Q
+//    with dO and Q read by ldmatrix.trans.  P and dS never leave the
+//    registers.  At dh 128 a warp holds dK and dV, two 16 x 128 fp32
+//    accumulators (128 registers a thread), and S^T and dP^T of the 64
+//    queries (64 more), so K's and V's A fragments are reloaded from
+//    shared memory for each query tile rather than kept: ptxas gives 255
+//    registers and an 8-byte spill under __launch_bounds__(128, 2) (32-
+//    query sub-blocks spilled the same and ran no faster).  Q, dO and
+//    their lse and D rows come through a two-stage cp.async ring, one
+//    barrier an iteration: iteration i + 1's tiles are in flight while i
+//    computes.  The key tile is the slowest grid axis in order: under
+//    `causal` key tile 0 sees every query tile, so the heaviest CTAs
+//    start first.
+//  - dq: a warp owns 16 queries.  Q and dO, loaded once, are the A
+//    operand (their fragments reloaded by ldmatrix each KV tile: dQ's
+//    accumulator and S and dP hold 128 registers); K and V come through
+//    the two-stage ring and are the B operand of S = Q K^T and dP = dO V^T
+//    as they lie and, by ldmatrix.trans, of dQ += dS K.  The query tile is
+//    the slowest grid axis, reversed under `causal` (tile i does i + 1 KV
+//    tiles).
+//  - delta: 16-byte loads, dh / 8 lanes a row, summed by xor-shuffles.
+// Rows are padded by 16 bytes, so ldmatrix's eight rows fall in distinct
+// banks.  Shared memory: six 64-row tiles and two stages of the lse and D
+// rows, 103 KB at dh 128 (two CTAs an SM) and 55 KB at dh 64.  P and dS
+// are rounded to bf16 before their products, as in FlashAttention-2 and
+// as the forward rounds P.  wgmma with TMA is later work.
+//
+// Variant "simt" (delta_kernel, dkv_kernel, dq_kernel): float32 (the
+// tensor cores would round it to TF32), dh 1..128, unaligned rows.  Each
+// CTA has 256 threads: 16 row groups g x 16 column lanes.  For a 64 x 64
+// tile of S or dP, thread (g, lane) owns rows 4g..4g+3 and keys lane + 16j
+// (j < 4), as in the forward's SIMT variant; the products read rows of
+// q/dO and k/v staged in shared memory as fp32 with an odd row stride, so
+// the 16 rows a half-warp reads fall in distinct banks.  For the
+// accumulators, thread (g, lane) owns rows (keys in dkv_kernel, queries
+// in dq_kernel) 4g..4g+3 and columns lane + 16j (j < dh / 16), in
+// registers; P and dS pass through shared memory between the two.  Its
+// FMAs run on the fp32 cores from shared memory with synchronous loads,
+// and its 166 KB of shared memory at dh 128 allow one CTA an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -427,22 +474,482 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
                       Sq, Sk, dh, scale, causal, s);
 }
 
+// ------------------------------------------------------ variant "tc"
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int THREADS = 128;   // 4 warps, 16 rows each
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DH>
+struct Tile {
+  static constexpr int LD = DH + 8;     // padded row, elements
+  static constexpr int SIZE = BK * LD;  // elements of one 64-row tile
+  // two tiles loaded once, two stages of two, two stages of the lse and
+  // D rows
+  static constexpr size_t SMEM =
+      6 * SIZE * sizeof(bf16) + 2 * 2 * BQ * sizeof(float);
+};
+
+// rows row0 .. row0+63 of one head into a padded tile (mma.cuh)
+template <int DH>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long stride, int row0,
+                                          int n) {
+  mma::cp_async_rows<BK, DH, Tile<DH>::LD, THREADS>(dst, src, stride, row0,
+                                                     n);
+}
+
+// lse and D of rows row0 .. row0+63 of one (batch, head) into rows[0..63]
+// and rows[64..127] by 4-byte async copies, a thread each; rows at or
+// past n are zero
+__device__ __forceinline__ void load_rows(float* rows, const float* lse,
+                                          const float* delta, int row0,
+                                          int n) {
+  const int row = row0 + (threadIdx.x & 63);
+  const bool ok = row < n;
+  mma::cp_async4(rows + threadIdx.x,
+                 (threadIdx.x < BQ ? lse : delta) + (ok ? row : 0),
+                 ok ? 4 : 0);
+}
+
+// A fragment of the 16 x 16 block at (r0, c0) of a row-major tile
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* tile,
+                                       int r0, int c0, int lane) {
+  mma::ldmatrix_x4(a, tile + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
+}
+
+// B fragments of two n8 tiles (n0..n0+7 in [0], [1]; n0+8.. in [2], [3])
+// at depth c0..c0+15 of a tile whose rows are n and columns the depth
+// (the "col" operand as it lies: K in Q K^T)
+template <int LD>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const bf16* tile,
+                                       int n0, int c0, int lane) {
+  mma::ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                          c0 + ((lane >> 3) & 1) * 8);
+}
+
+// the same from a tile whose rows are the depth k0..k0+15 and columns n
+// (row-major (k, n): V in P V), by ldmatrix.trans
+template <int LD>
+__device__ __forceinline__ void frag_bt(uint32_t (&b)[4], const bf16* tile,
+                                        int k0, int n0, int lane) {
+  mma::ldmatrix_x4_trans(
+      b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
+             (lane >> 4) * 8);
+}
+
+// two neighbouring C fragments (columns 0-7, 8-15) rounded to bf16: one A
+// fragment of a 16-deep product
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = mma::pack_bf16(c0[0], c0[1]);
+  a[1] = mma::pack_bf16(c0[2], c0[3]);
+  a[2] = mma::pack_bf16(c1[0], c1[1]);
+  a[3] = mma::pack_bf16(c1[2], c1[3]);
+}
+
+// D = rowsum(dO o o) by 16-byte loads: dh / 8 lanes a row
+template <int DH>
+__global__ void __launch_bounds__(256)
+    delta_tc_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                    Strides os, Strides ds, float* __restrict__ delta, int H,
+                    int Sq, long long rows) {
+  constexpr int CH = DH / 8;
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / CH;
+  const int c = threadIdx.x % CH;
+  float acc = 0.f;
+  if (row < rows) {
+    const int i = static_cast<int>(row % Sq);
+    const long long bh = row / Sq;
+    const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        o + b * os.b + i * os.s + h * os.h + c * 8);
+    const uint4 d = *reinterpret_cast<const uint4*>(
+        dout + b * ds.b + i * ds.s + h * ds.h + c * 8);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const float2 fa = __bfloat1622float2(a2[m]);
+      const float2 fd = __bfloat1622float2(d2[m]);
+      acc = fmaf(fa.x, fd.x, acc);
+      acc = fmaf(fa.y, fd.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = CH / 2; off; off >>= 1)
+    acc += __shfl_xor_sync(FULL, acc, off);
+  if (row < rows && c == 0) delta[row] = acc;
+}
+
+// dK and dV of one 64-key tile of one KV head: the query heads that share
+// it, then the query tiles, in that fixed order
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 2)
+    dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, Strides qs, Strides ks, Strides vs,
+                  Strides dos, Strides dks, Strides dvs, int rep, int H,
+                  int Sq, int Sk, float scale, int causal) {
+  using T = Tile<DH>;
+  constexpr int KC = DH / 16;  // 16-deep chunks of a head
+  constexpr int NO = DH / 8;   // n8 tiles of a head (dK's, dV's fragments)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + T::SIZE;
+  bf16* ring = Vs + T::SIZE;  // stage s: Q at 2s, dO at 2s + 1 tiles
+  float* rows = reinterpret_cast<float*>(ring + 4 * T::SIZE);  // 128 a stage
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int hk = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int k0 = kt * BK, kw = k0 + warp * 16;  // the warp's first key
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int qt0 = causal ? kt : 0;  // no row of an earlier tile sees k0
+  const int n_per = max(n_qt - qt0, 0), n_it = rep * n_per;
+  const float scale_log2 = scale * LOG2E;
+
+  // iteration i: query head hk * rep + i / n_per, query tile qt0 + i % n_per
+  auto issue = [&](int i) {
+    const int h = hk * rep + i / n_per, q0 = (qt0 + i % n_per) * BQ;
+    bf16* stage = ring + 2 * (i & 1) * T::SIZE;
+    const long long bh = static_cast<long long>(b) * H + h;
+    load_tile<DH>(stage, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
+    load_tile<DH>(stage + T::SIZE, dout + b * dos.b + h * dos.h, dos.s, q0,
+                  Sq);
+    load_rows(rows + 2 * BQ * (i & 1), lse + bh * Sq, delta + bh * Sq, q0,
+              Sq);
+    mma::cp_async_commit();
+  };
+  if (n_it > 0) {
+    load_tile<DH>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, Sk);
+    load_tile<DH>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, Sk);
+    issue(0);
+  }
+
+  // keys kw + g + 8 (e >> 1), columns 8j + 2 t4 + (e & 1)
+  float dK[NO][4], dV[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dK[j][e] = dV[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    mma::cp_async_wait<0>();  // iteration it's tiles have landed
+    __syncthreads();          // ... for every thread; it - 1's are consumed
+    if (it + 1 < n_it) issue(it + 1);
+    const bf16* Qs = ring + 2 * (it & 1) * T::SIZE;
+    const bf16* Gs = Qs + T::SIZE;
+    const float* Ls = rows + 2 * BQ * (it & 1);
+    const float* Ds = Ls + BQ;
+    const int q0 = (qt0 + it % n_per) * BQ;
+
+    // S^T = K Q^T, dP^T = V dO^T: keys kw + g (+8) x queries 8j + 2 t4 (+1)
+    float st[8][4], dpt[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t ka[4], va[4];
+      frag_a<T::LD>(ka, Ks, warp * 16, kc * 16, lane);
+      frag_a<T::LD>(va, Vs, warp * 16, kc * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t qb[4], gb[4];
+        frag_b<T::LD>(qb, Qs, np * 16, kc * 16, lane);
+        mma::mma_bf16(st[2 * np], ka, qb[0], qb[1]);
+        mma::mma_bf16(st[2 * np + 1], ka, qb[2], qb[3]);
+        frag_b<T::LD>(gb, Gs, np * 16, kc * 16, lane);
+        mma::mma_bf16(dpt[2 * np], va, gb[0], gb[1]);
+        mma::mma_bf16(dpt[2 * np + 1], va, gb[2], gb[3]);
+      }
+    }
+
+    // P^T and dS^T on the fragments, exactly 0 where masked
+    const bool edge = q0 + BQ > Sq || kw + 16 > Sk ||
+                      (causal && q0 < kw + 15);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t4;  // the lane's first query in the tile
+      const float2 l2 = *reinterpret_cast<const float2*>(Ls + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(Ds + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lq = (e & 1) ? l2.y : l2.x, dq = (e & 1) ? d2.y : d2.x;
+        float p = exp2f(fmaf(st[j][e], scale_log2, -lq * LOG2E));
+        float ds = p * (dpt[j][e] - dq);
+        if (edge) {
+          const int row = q0 + c + (e & 1), key = kw + g + 8 * (e >> 1);
+          if (row >= Sq || key >= Sk || (causal && row < key))
+            p = ds = 0.f;
+        }
+        st[j][e] = p;
+        dpt[j][e] = ds;
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q over the tile's 64 queries
+#pragma unroll
+    for (int kc = 0; kc < BQ / 16; ++kc) {
+      uint32_t pa[4], sa[4];
+      pack_a(pa, st[2 * kc], st[2 * kc + 1]);
+      pack_a(sa, dpt[2 * kc], dpt[2 * kc + 1]);
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t gb[4], qb[4];
+        frag_bt<T::LD>(gb, Gs, kc * 16, dp * 16, lane);
+        mma::mma_bf16(dV[2 * dp], pa, gb[0], gb[1]);
+        mma::mma_bf16(dV[2 * dp + 1], pa, gb[2], gb[3]);
+        frag_bt<T::LD>(qb, Qs, kc * 16, dp * 16, lane);
+        mma::mma_bf16(dK[2 * dp], sa, qb[0], qb[1]);
+        mma::mma_bf16(dK[2 * dp + 1], sa, qb[2], qb[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw + g + 8 * r;
+    if (key >= Sk) continue;
+    bf16* krow = dk + b * dks.b + key * dks.s + hk * dks.h + 2 * t4;
+    bf16* vrow = dv + b * dvs.b + key * dvs.s + hk * dvs.h + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      *reinterpret_cast<uint32_t*>(krow + 8 * j) =
+          mma::pack_bf16(dK[j][2 * r] * scale, dK[j][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(vrow + 8 * j) =
+          mma::pack_bf16(dV[j][2 * r], dV[j][2 * r + 1]);
+    }
+  }
+}
+
+// dQ of one 64-query tile of one head: the KV tiles in order
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 2)
+    dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq,
+                 Strides qs, Strides ks, Strides vs, Strides dos,
+                 Strides dqs, int rep, int H, int Sq, int Sk, float scale,
+                 int causal) {
+  using T = Tile<DH>;
+  constexpr int KC = DH / 16;
+  constexpr int NO = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Gs = Qs + T::SIZE;
+  bf16* ring = Gs + T::SIZE;  // stage s: K at 2s, V at 2s + 1 tiles
+  float* rows = reinterpret_cast<float*>(ring + 4 * T::SIZE);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / rep;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ, w0 = q0 + warp * 16;  // first row of the warp
+  const long long bh = static_cast<long long>(b) * H + h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  const float scale_log2 = scale * LOG2E;
+
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, qt + 1);
+
+  load_tile<DH>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
+  load_tile<DH>(Gs, dout + b * dos.b + h * dos.h, dos.s, q0, Sq);
+  load_rows(rows, lse + bh * Sq, delta + bh * Sq, q0, Sq);
+  load_tile<DH>(ring, kb, ks.s, 0, Sk);
+  load_tile<DH>(ring + T::SIZE, vb, vs.s, 0, Sk);
+  mma::cp_async_commit();
+
+  // rows w0 + g + 8 (e >> 1), columns 8j + 2 t4 + (e & 1)
+  float dQ[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dQ[j][e] = 0.f;
+  float lr[2], dr[2];  // lse (log2 units) and D of rows g and g + 8
+
+  for (int t = 0; t < n_tiles; ++t) {
+    mma::cp_async_wait<0>();  // tile t has landed
+    __syncthreads();          // ... for every thread; tile t-1 is consumed
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lr[r] = rows[warp * 16 + g + 8 * r] * LOG2E;
+        dr[r] = rows[BQ + warp * 16 + g + 8 * r];
+      }
+    }
+    if (t + 1 < n_tiles) {  // tile t+1 into the other stage
+      bf16* nxt = ring + 2 * ((t + 1) & 1) * T::SIZE;
+      load_tile<DH>(nxt, kb, ks.s, (t + 1) * BK, Sk);
+      load_tile<DH>(nxt + T::SIZE, vb, vs.s, (t + 1) * BK, Sk);
+      mma::cp_async_commit();
+    }
+    const bf16* Ks = ring + 2 * (t & 1) * T::SIZE;
+    const bf16* Vs = Ks + T::SIZE;
+
+    // S = Q K^T, dP = dO V^T: 8 n8 tiles of 8 keys each
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4], ga[4];
+      frag_a<T::LD>(qa, Qs, warp * 16, kc * 16, lane);
+      frag_a<T::LD>(ga, Gs, warp * 16, kc * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kf[4], vf[4];
+        frag_b<T::LD>(kf, Ks, np * 16, kc * 16, lane);
+        mma::mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma::mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+        frag_b<T::LD>(vf, Vs, np * 16, kc * 16, lane);
+        mma::mma_bf16(dp[2 * np], ga, vf[0], vf[1]);
+        mma::mma_bf16(dp[2 * np + 1], ga, vf[2], vf[3]);
+      }
+    }
+
+    // dS = P o (dP - D) on the fragments, exactly 0 where masked
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > Sk || w0 + 16 > Sq ||
+                      (causal && k0 + BK - 1 > w0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float ds = exp2f(fmaf(s[j][e], scale_log2, -lr[r])) *
+                   (dp[j][e] - dr[r]);
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int row = w0 + g + 8 * r;
+          if (key >= Sk || row >= Sq || (causal && row < key)) ds = 0.f;
+        }
+        s[j][e] = ds;
+      }
+
+    // dQ += dS K, dS rounded to bf16 in registers
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t sa[4];
+      pack_a(sa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+      for (int dc = 0; dc < DH / 16; ++dc) {
+        uint32_t kf[4];
+        frag_bt<T::LD>(kf, Ks, kc * 16, dc * 16, lane);
+        mma::mma_bf16(dQ[2 * dc], sa, kf[0], kf[1]);
+        mma::mma_bf16(dQ[2 * dc + 1], sa, kf[2], kf[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    if (row >= Sq) continue;
+    bf16* dst = dq + b * dqs.b + row * dqs.s + h * dqs.h + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          mma::pack_bf16(dQ[j][2 * r] * scale, dQ[j][2 * r + 1] * scale);
+  }
+}
+
+// the dynamic shared memory a kernel needs, and the carveout that gives
+// two CTAs an SM at dh 128
+template <typename K>
+cudaError_t max_shared(K kernel, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, const long long* st, int B, int H, int KH,
+           int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]},
+      dos{st[12], st[13], st[14]}, dqs{st[15], st[16], st[17]},
+      dks{st[18], st[19], st[20]}, dvs{st[21], st[22], st[23]};
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  const int rep = H / KH;
+  const size_t bytes = Tile<DH>::SMEM;
+
+  const long long rows = static_cast<long long>(B) * H * Sq;
+  const unsigned blocks =
+      static_cast<unsigned>((rows * (DH / 8) + 255) / 256);
+  delta_tc_kernel<DH><<<blocks, 256, 0, stream>>>(
+      static_cast<const bf16*>(o), dot, os, dos, delta, H, Sq, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  auto dkv = dkv_tc_kernel<DH>;
+  err = max_shared(dkv, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkv<<<dim3(KH, B, (Sk + BK - 1) / BK), THREADS, bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), qs, ks, vs, dos, dks, dvs, rep, H, Sq, Sk,
+      scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  auto dqk = dq_tc_kernel<DH>;
+  err = max_shared(dqk, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dqk<<<dim3(H, B, (Sq + BQ - 1) / BQ), THREADS, bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), qs, ks, vs, dos,
+      dqs, rep, H, Sq, Sk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+
 }  // namespace
 
 // q, o, dout, dq (B, Sq, H, dh); k, v, dk, dv (B, Sk, KH, dh); lse and
 // delta fp32 (B, H, Sq), contiguous (delta is scratch the launch fills).
 // `strides` holds the batch, sequence and head strides of q, k, v, o,
 // dout, dq, dk and dv, in elements, in that order (24 values, host
-// memory).  dtype: 0 float32, 1 bfloat16; 1 <= dh <= 128; H % KH == 0.  Returns
+// memory).  dtype: 0 float32, 1 bfloat16.  use_tc: 0 "simt" (dh 1..128),
+// 1 "tc" (bfloat16, dh 64 or 128, 16-byte aligned pointers, strides
+// multiples of 8 elements: the wrapper's rule).  H % KH == 0.  Returns
 // cudaGetLastError() after the last launch.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, const long long* strides, int B, int H, int KH, int Sq, int Sk,
-    int dh, float scale, int causal, int dtype, void* stream) {
+    int dh, float scale, int causal, int dtype, int use_tc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh < 1 || dh > 128 || KH < 1 || H % KH)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (use_tc) {
+    if (dtype == 1 && dh == 64)
+      return tc::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                            strides, B, H, KH, Sq, Sk, scale, causal, s);
+    if (dtype == 1 && dh == 128)
+      return tc::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                             strides, B, H, KH, Sq, Sk, scale, causal, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                    strides, B, H, KH, Sq, Sk, dh, scale,

@@ -1,5 +1,6 @@
-// Tensor-core and async-copy helpers shared by flash_attention.cu and
-// matmul.cu: cp.async copies from device memory into shared memory,
+// Tensor-core and async-copy helpers shared by flash_attention.cu,
+// flash_attention_bwd.cu and matmul.cu: cp.async copies from device
+// memory into shared memory (a padded tile of bf16 rows at a time),
 // ldmatrix loads of 8x8 bf16 tiles into mma fragments, and the
 // m16n8k16 bf16 product with an fp32 accumulator (sm_80 and later, so
 // sm_90a).
@@ -31,6 +32,27 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
+}
+
+// rows row0 .. row0+ROWS-1 of a row-major bf16 matrix (DH contiguous
+// columns, row stride `stride` elements) into a shared tile of row stride
+// LD elements, by 16-byte copies spread over THREADS threads; rows at or
+// past n are zero-filled (the source is then row 0, which is valid, and
+// reads no byte)
+template <int ROWS, int DH, int LD, int THREADS>
+__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* src,
+                                              long long stride, int row0,
+                                              int n) {
+  constexpr int CH = DH / 8;  // 16-byte chunks of a row
+#pragma unroll
+  for (int e = 0; e < ROWS * CH / THREADS; ++e) {
+    const int i = e * THREADS + threadIdx.x;
+    const int r = i / CH, c = i % CH, row = row0 + r;
+    const bool ok = row < n;
+    cp_async16(dst + r * LD + c * 8, src + (ok ? row * stride : 0) + c * 8,
+               ok ? 16 : 0);
+  }
 }
 
 // 4 bytes from global to shared (src_bytes 0 or 4, zero-filled as above)

@@ -139,7 +139,7 @@ def load() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = i
         lib.flash_attention_bwd_launch.argtypes = (
             [p] * 10 + [ctypes.POINTER(ctypes.c_longlong)] + [i] * 6
-            + [ctypes.c_float, i, i, p])
+            + [ctypes.c_float, i, i, i, p])
         lib.flash_attention_bwd_launch.restype = i
         lib.matmul_launch.argtypes = [p] * 3 + [i] * 5 + [p]
         lib.matmul_launch.restype = i

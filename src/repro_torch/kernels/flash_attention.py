@@ -32,7 +32,8 @@ Training: :class:`FlashAttention` is the kernel as a
 row log-sum-exp output (``lse``, fp32 (B, H, Sq)) and saves q, k, v, o and
 lse; its backward launches :func:`flash_attention_bwd`
 (``csrc/flash_attention_bwd.cu``: dQ, dK, dV without float atomics, so
-two calls give equal bits).  :func:`flash_attention_gqa` takes the Function
+two calls give equal bits), in the same two variants by the same rule
+over q, k, v, o and dO, the forward's forced variant passed through.  :func:`flash_attention_gqa` takes the Function
 when autograd records (grad enabled and an input that requires grad) and
 the plain launch otherwise, so serving writes no lse.  The JAX package
 has no backward kernel: ``jax.grad`` differentiates its plain attention.
@@ -61,15 +62,17 @@ _GRID_MAX = 65535                    # gridDim.y and .z
 _QTILE = 64                          # query rows per CTA
 
 
-def variant(q, k, v) -> str:
-    """The kernel variant the rule gives q, k, v: ``"tc"`` for bfloat16
-    with dh in :data:`TC_HEAD_DIMS`, every data pointer 16-byte aligned
-    and every stride but the last (contiguous) one a multiple of 8
-    elements, so that each row is whole 16-byte copies; else ``"simt"``."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in TC_HEAD_DIMS:
+def variant(q, k, v, *more) -> str:
+    """The kernel variant the rule gives q, k, v (and ``more``: the
+    backward's o and dO): ``"tc"`` for bfloat16 with dh in
+    :data:`TC_HEAD_DIMS`, every data pointer 16-byte aligned and every
+    stride but the last (contiguous) one a multiple of 8 elements, so that
+    each row is whole 16-byte copies; else ``"simt"``."""
+    if q.shape[-1] not in TC_HEAD_DIMS:
         return "simt"
-    for x in (q, k, v):
-        if x.data_ptr() % 16 or x.stride(-1) != 1 or any(
+    for x in (q, k, v, *more):
+        if x.dtype != torch.bfloat16 or x.data_ptr() % 16 or \
+                x.stride(-1) != 1 or any(
                 st % 8 for st in x.stride()[:-1]):
             return "simt"
     return "tc"
@@ -151,30 +154,40 @@ class FlashAttention(torch.autograd.Function):
         else:
             o, lse = mha_lse_ref(q, k, v, causal=causal)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.variant = causal, variant
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        grads = flash_attention_bwd(q, k, v, o, do, lse, causal=ctx.causal)
+        grads = flash_attention_bwd(q, k, v, o, do, lse, causal=ctx.causal,
+                                    variant=ctx.variant)
         return tuple(g if need else None for g, need in
                      zip(grads, ctx.needs_input_grad[:3])) + (None, None)
 
 
-def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        variant=None):
     """The flash kernel's gradient: q, o, do (B, Sq, H, dh), k, v (B, Sk,
     KH, dh), lse (B, H, Sq) float32 from the forward -> (dq, dk, dv), dq
-    in q's dtype and dk, dv in k's.  CPU tensors take
-    :func:`.ref.mha_bwd_ref`; CUDA tensors launch
-    ``csrc/flash_attention_bwd.cu`` (1 <= dh <= 128) or raise."""
+    in q's dtype and dk, dv in k's.  ``variant``: None for the rule's
+    choice (:func:`variant` over q, k, v, o and do), or ``"simt"`` to
+    force the SIMT kernels.  CPU tensors take :func:`.ref.mha_bwd_ref`;
+    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (1 <= dh <= 128)
+    or raise."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
         raise ValueError("flash_attention_bwd: o and do must be q's shape "
                          "and lse (B, H, Sq)")
+    _check_variant(variant)
     if not q.is_cuda:
         return mha_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    return _launch_bwd(q, k, v, o, do, lse, causal, variant)
+
+
+def _launch_bwd(q, k, v, o, do, lse, causal: bool, forced):
+    """The backward kernels on CUDA tensors: (dq, dk, dv)."""
     B, Sq, H, dh = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     if dh > MAX_BWD_HEAD_DIM:
@@ -188,8 +201,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
                          f"be <= {_GRID_MAX}")
     q, k, v, o, do = (x if x.stride(-1) == 1 else x.contiguous()
                       for x in (q, k, v, o, do))
-    do = do.to(q.dtype)
+    o, do = o.to(q.dtype), do.to(q.dtype)
     lse = lse.float().contiguous()
+    chosen = forced or variant(q, k, v, o, do)
     gq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     gk, gv = (torch.empty(k.shape, dtype=k.dtype, device=k.device)
               for _ in range(2))
@@ -203,10 +217,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), gq.data_ptr(),
         gk.data_ptr(), gv.data_ptr(), strides, B, H, KH, Sq, Sk, dh,
-        dh ** -0.5, int(causal), _build.DTYPES[q.dtype],
+        dh ** -0.5, int(causal), _build.DTYPES[q.dtype], int(chosen == "tc"),
         _build.stream_ptr(q))
     _build.check(rc, "flash_attention_bwd")
     _build.LAUNCHES["flash_attention_bwd"] += 1
+    _build.VARIANTS[("flash_attention_bwd", chosen)] += 1
     return gq, gk, gv
 
 

@@ -569,13 +569,15 @@ def test_mixed_drain_attribution_on_card(card):
 
 # (B, Sq, Sk, H, KH, dh, dtype, causal): the training shapes (qwen3 cut to
 # batch 2, smollm's 15/5 heads of 64), a ragged length, full attention,
-# float32 at dh 16 and Sq != Sk (the top-left causal mask)
+# float32 at dh 16 and Sq != Sk (the top-left causal mask) in float32 and
+# in bf16 at dh 64 (the tensor-core kernels' ragged tiles and mask)
 FLASH_BWD_SHAPES = [
     (2, 256, 256, 16, 8, 128, torch.bfloat16, True),
     (2, 200, 200, 15, 5, 64, torch.bfloat16, True),
     (2, 128, 128, 4, 4, 64, torch.bfloat16, False),
     (1, 70, 70, 4, 2, 16, torch.float32, True),
     (1, 40, 72, 4, 1, 32, torch.float32, True),
+    (1, 40, 72, 4, 2, 64, torch.bfloat16, True),
 ]
 
 
@@ -588,23 +590,33 @@ def _bwd_inputs(card, B, Sq, Sk, H, KH, dh, dtype, seed=0):
     return q, k, v, do
 
 
+@pytest.mark.parametrize("forced", [None, "simt"])
 @pytest.mark.parametrize("B,Sq,Sk,H,KH,dh,dtype,causal", FLASH_BWD_SHAPES)
 def test_flash_backward_kernel_matches_plain(card, B, Sq, Sk, H, KH, dh,
-                                             dtype, causal):
+                                             dtype, causal, forced):
     """The forward's lse against the plain one (1e-4), and dq, dk, dv of
     the backward kernel against ``mha_bwd_ref`` on the same q, k, v, o,
     dO and lse: within 2e-2 (bf16) or 1e-3 (float32) of each gradient's
-    largest magnitude; two calls give equal bits."""
+    largest magnitude; two calls give equal bits.  By the rule's variant
+    (the tensor-core kernels for bf16 at dh 64 and 128) and by the forced
+    SIMT one."""
     from repro_torch.kernels.ref import mha_bwd_ref, mha_lse_ref
     q, k, v, do = _bwd_inputs(card, B, Sq, Sk, H, KH, dh, dtype)
     o, lse = tfa._launch(q, k, v, causal, None, want_lse=True)
     torch.testing.assert_close(lse, mha_lse_ref(q, k, v, causal=causal)[1],
                                rtol=1e-4, atol=1e-4)
     _build.LAUNCHES.clear()
-    got = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
-    again = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    _build.VARIANTS.clear()
+    got = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                  variant=forced)
+    again = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                    variant=forced)
     torch.cuda.synchronize()
     assert dict(_build.LAUNCHES) == {"flash_attention_bwd": 2}
+    want_variant = "tc" if forced is None and dtype == torch.bfloat16 and \
+        dh in tfa.TC_HEAD_DIMS else "simt"
+    assert dict(_build.VARIANTS) == {("flash_attention_bwd",
+                                      want_variant): 2}
     want = mha_bwd_ref(q, k, v, o, do, lse, causal=causal)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-3
     for a, b, w, x in zip(got, again, want, (q, k, v)):
@@ -616,7 +628,7 @@ def test_flash_backward_kernel_matches_plain(card, B, Sq, Sk, H, KH, dh,
 
 def test_flash_attention_function_on_card(card):
     """``ops.mha`` under autograd launches the forward and the backward
-    kernel once each; the gradients of a strided bf16 q, k, v (views of
+    kernel once each, both the tensor-core variant; the gradients of a strided bf16 q, k, v (views of
     one projection) match autograd through the plain attention, and an
     input without grad gets none."""
     g = torch.Generator(device=card).manual_seed(3)
@@ -625,9 +637,12 @@ def test_flash_attention_function_on_card(card):
     q, k, v = x[:, :, :16], x[:, :, 16:24], x[:, :, 24:]
     do = torch.randn((2, 256, 16, 128), generator=g, device=card).bfloat16()
     _build.LAUNCHES.clear()
+    _build.VARIANTS.clear()
     got = torch.autograd.grad(ops.mha(q, k, v), x, do)[0]
     assert dict(_build.LAUNCHES) == {"flash_attention": 1,
                                      "flash_attention_bwd": 1}
+    assert dict(_build.VARIANTS) == {("flash_attention", "tc"): 1,
+                                     ("flash_attention_bwd", "tc"): 1}
     want = torch.autograd.grad(mha_ref(q.float(), k.float(), v.float()), x,
                                do.float())[0]
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,

@@ -17,7 +17,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import matmul as tmm
-from repro_torch.kernels.ref import flash_attention_ref, mha_ref
+from repro_torch.kernels.ref import (flash_attention_ref, mha_bwd_ref,
+                                    mha_lse_ref, mha_ref)
 from repro_torch.models import convert
 
 
@@ -99,6 +100,108 @@ def test_flash_forces_only_the_simt_variant(forced):
     force the SIMT one."""
     with pytest.raises(ValueError, match="variant"):
         tfa.flash_attention_gqa(*qkv(), variant=forced)
+
+
+def bwd_inputs(dh=128, dtype=torch.bfloat16, S=64, T=None):
+    """q, k, v as :func:`qkv`, and o and dO of q's shape and dtype."""
+    q, k, v = qkv(S=S, dh=dh, dtype=dtype, T=T)
+    g = torch.Generator().manual_seed(1)
+    o, do = (torch.randn(q.shape, generator=g).to(dtype) for _ in range(2))
+    return q, k, v, o, do
+
+
+@pytest.mark.parametrize("dh,T", [(64, None), (128, None), (64, 232),
+                                  (128, 232)])
+def test_flash_bwd_bf16_takes_tc(dh, T):
+    """The backward's rule over q, k, v, o and dO: bf16 at dh 64 or 128,
+    contiguous or k/v a cache prefix, takes the tensor-core kernels."""
+    x = bwd_inputs(dh=dh, S=200 if T else 64, T=T)
+    assert T is None or not x[1].is_contiguous()
+    assert tfa.variant(*x) == "tc"
+
+
+def _odd_do_stride(x):
+    """dO whose head stride (129 elements) is off the 16-byte vector."""
+    q = x[0]
+    wide = torch.zeros(q.shape[:-1] + (q.shape[-1] + 1,), dtype=q.dtype)
+    do = wide[..., :q.shape[-1]]
+    assert do.data_ptr() % 16 == 0 and do.stride(2) % 8
+    return x[:4] + [do]
+
+
+@pytest.mark.parametrize("case", ["float32", "dh 16", "dh 32",
+                                  "misaligned o", "misaligned dO",
+                                  "odd dO stride"])
+def test_flash_bwd_other_inputs_take_simt(case):
+    """float32 (the tensor cores would round it to TF32), dh 16 or 32,
+    and an o or dO whose rows are not whole 16-byte copies take the SIMT
+    kernels."""
+    if case == "float32":
+        x = list(bwd_inputs(dtype=torch.float32))
+    elif case.startswith("dh"):
+        x = list(bwd_inputs(dh=int(case[3:])))
+    else:
+        x = list(bwd_inputs())
+    if case == "misaligned o":
+        x[3] = misaligned(x[3].shape, torch.bfloat16)
+        assert x[3].data_ptr() % 16
+    elif case == "misaligned dO":
+        x[4] = misaligned(x[4].shape, torch.bfloat16)
+        assert x[4].data_ptr() % 16
+    elif case == "odd dO stride":
+        x = _odd_do_stride(x)
+    assert tfa.variant(*x[:3]) == ("tc" if case in ("misaligned o",
+                                                    "misaligned dO",
+                                                    "odd dO stride")
+                                   else "simt")
+    assert tfa.variant(*x) == "simt"
+
+
+@pytest.mark.parametrize("forced", ["tc", "wgmma"])
+def test_flash_bwd_forces_only_the_simt_variant(forced):
+    q, k, v, o, do = bwd_inputs()
+    lse = torch.zeros((2, 8, 64))
+    with pytest.raises(ValueError, match="variant"):
+        tfa.flash_attention_bwd(q, k, v, o, do, lse, variant=forced)
+
+
+@pytest.mark.parametrize("forced", [None, "simt"])
+def test_flash_bwd_on_cpu_takes_the_plain_version(forced):
+    """CPU tensors take ``mha_bwd_ref`` whatever the variant, and no
+    launch is counted."""
+    q, k, v = qkv(S=64)
+    _, lse = mha_lse_ref(q, k, v, causal=True)
+    o = mha_ref(q, k, v, causal=True)
+    do = bwd_inputs()[4]
+    _build.LAUNCHES.clear()
+    _build.VARIANTS.clear()
+    got = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                  variant=forced)
+    want = mha_bwd_ref(q, k, v, o, do, lse, causal=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not _build.LAUNCHES and not _build.VARIANTS
+
+
+@pytest.mark.parametrize("forced", [None, "simt"])
+def test_flash_function_passes_the_forced_variant_to_backward(monkeypatch,
+                                                              forced):
+    """``FlashAttention.backward`` hands the forward's forced variant to
+    :func:`flash_attention_bwd`, so a caller that forces the SIMT forward
+    gets the SIMT backward too."""
+    seen = []
+    bwd = tfa.flash_attention_bwd
+
+    def spy(*a, **kw):
+        seen.append(kw["variant"])
+        return bwd(*a, **kw)
+
+    monkeypatch.setattr(tfa, "flash_attention_bwd", spy)
+    q, k, v = (x.clone().requires_grad_(True) for x in qkv(S=64))
+    out = tfa.flash_attention_gqa(q, k, v, causal=True, variant=forced)
+    out.float().sum().backward()
+    assert seen == [forced]
+    assert all(x.grad is not None for x in (q, k, v))
 
 
 @pytest.mark.parametrize("dtype,want", [(torch.float32, "simt"),
