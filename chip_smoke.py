@@ -129,10 +129,11 @@ Phases, each printed as it ends:
    from cleared caches (misses in the 64- and the 96-instruction code
    buckets) and of the same drain again (no miss);
 17. training (``[train]``): the flash backward kernels against their
-   plain version (``mha_bwd_ref``) at five shapes (qwen3's training shape,
-   smollm's 15/5 heads of 64, float32 dh 16, a ragged S=200, full
-   attention), each by the rule's variant (``"tc"`` for the four bf16
-   shapes, ``"simt"`` for float32) and the bf16 ones by the forced
+   plain version (``mha_bwd_ref``) at seven shapes (qwen3's training
+   shape, smollm's 15/5 heads of 64, float32 dh 16, a ragged S=200, full
+   attention, and dh 256 in bf16 and in float32), each by the rule's
+   variant (``"tc"`` for the four bf16 shapes at dh 64 and 128,
+   ``"simt"`` for float32 and dh 256) and the ``"tc"`` ones by the forced
    ``"simt"`` too, two calls bit-equal; ``repro_torch.launch.train.main``
    trains qwen3-0.6b at full width (28 layers, 596,042,752 random bf16
    parameters from seed 0) for 6 steps of 8 x 512 tokens, every loss and
@@ -145,7 +146,31 @@ Phases, each printed as it ends:
    full-width step under ``torch.profiler`` (device ms, launches, busy
    share, tokens/s, top operations), and the backward kernels' time at
    the training shape, ``"tc"`` and ``"simt"`` in turns, beside the plain
-   version and the backward of ``scaled_dot_product_attention``.
+   version and the backward of ``scaled_dot_product_attention``, and the
+   SIMT kernels' time at dh 256;
+18. the other families serving (``[serve-families]``): ``serve.main`` at
+   full width, batch 4, a 512-token prompt and 32 new tokens, random bf16
+   weights from seed 0, for llama3.2-3b, yi-6b, mamba2-130m and
+   zamba2-1.2b, with 28 / 32 / 0 / 7 flash launches a prefill (one a
+   layer; none; one an application of zamba2's shared attention block),
+   every one ``"tc"``; each one's prefill step with the kernel against
+   the same step with the plain attention, per layer (``LAYER_TOL``), and
+   end to end (logits and every decode state) no farther from the fp32
+   prefill than the plain attention's plus ``LM_REL_TOL``, and but for the
+   hybrid within ``LM_REL_TOL`` of the plain attention directly; prefill
+   and decode times and a profile of each; and mamba2's one-step prefill
+   of 200 tokens against its 200 decode steps (every position's logits
+   within 3e-2 in fp32; bf16 read);
+19. the other families training (``[train-families]``):
+   ``launch.train.main`` of mamba2-130m and zamba2-1.2b at full width, 4
+   steps of 8 x 512, with zamba2's 7 flash forwards and 7 backwards a
+   step (its shared block outside the remat), all ``"tc"``; a
+   ``build_train_step`` step with every gradient leaf non-zero; one step
+   with every flash forward and backward call held to its plain version
+   on the same inputs, and its loss and whole gradient no farther from the
+   fp32 step than the plain attention's plus ``TRAIN_LOSS_TOL`` and
+   ``TRAIN_GRAD_TOL``; a profiled step with its peak memory; and a
+   bit-exact resume at ``--reduced``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are on the card named in the
@@ -948,7 +973,8 @@ def per_layer_check(errs, fn=None, tol=LAYER_TOL):
 
     def checked(q, k, v, *, causal=True):
         out = run(q, k, v, causal=causal)
-        want = mha_ref(q, k, v, causal=causal)
+        with torch.no_grad():
+            want = mha_ref(q, k, v, causal=causal)
         errs.append(close(out, want, tol, f"layer {len(errs)}")
                     if tol is not None else
                     (out.float() - want.float()).abs().max().item())
@@ -2006,7 +2032,9 @@ BWD_SHAPES = [("qwen3 training", 8, 512, 16, 8, 128, torch.bfloat16, True),
               ("smollm 15/5 heads", 8, 512, 15, 5, 64, torch.bfloat16, True),
               ("f32 dh 16", 2, 256, 4, 2, 16, torch.float32, True),
               ("ragged S=200", 4, 200, 16, 8, 128, torch.bfloat16, True),
-              ("full attention", 4, 256, 16, 8, 128, torch.bfloat16, False)]
+              ("full attention", 4, 256, 16, 8, 128, torch.bfloat16, False),
+              ("dh 256", 2, 256, 8, 4, 256, torch.bfloat16, True),
+              ("f32 dh 256", 2, 256, 8, 4, 256, torch.float32, True)]
 #: the full-width step with the flash kernel against the same step with
 #: the plain attention: the loss within 1e-2 relative and each gradient
 #: leaf within a relative Frobenius error of 5e-2, sanity bounds like
@@ -2118,15 +2146,204 @@ def rel_leaves(a, b):
             zip(T.leaves_with_paths(a), T.leaves_with_paths(b))}
 
 
+def nonzero_grad_norms(stats, tag):
+    """The gradient norms of a train step's ``stats`` by leaf path; raises
+    unless every one is finite and non-zero (in every layer).  Returns
+    them and the smallest (path, norms)."""
+    from repro_torch import tree as T
+    norms = {"/".join(map(str, p)): n.float().cpu() for p, n in
+             T.leaves_with_paths(stats["grad_norms"])}
+    bad = [k for k, n in norms.items()
+           if not (torch.isfinite(n).all() and (n > 0).all())]
+    if bad:
+        raise AssertionError(f"{tag}: zero or non-finite gradient in {bad}")
+    return norms, min(norms.items(), key=lambda kv: kv[1].min().item())
+
+
+def step_vs_plain(spec, params, batch, prefix):
+    """The loss and gradients of one full-width step with the flash kernel
+    against the same step with the plain attention in its place, within
+    ``TRAIN_LOSS_TOL`` and ``TRAIN_GRAD_TOL``."""
+    from repro_torch.launch.steps import build_loss_and_grads, deterministic
+    loss_and_grads = build_loss_and_grads(spec)
+    with deterministic():
+        lk, gk = loss_and_grads(params, batch)
+    with plain_attention(), deterministic():
+        lp, gp = loss_and_grads(params, batch)
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    rels = rel_leaves(gk, gp)
+    worst = max(rels.items(), key=lambda kv: kv[1])
+    if not (loss_rel <= TRAIN_LOSS_TOL and worst[1] <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"{prefix} {spec.name} step vs plain attention:"
+                             f" loss {loss_rel}, gradients {rels}")
+    log(f"{prefix} {spec.name} full-width step, flash kernel vs plain "
+        f"attention: loss {lk.item():.5f} vs {lp.item():.5f} (relative "
+        f"{loss_rel:.2e}, tol {TRAIN_LOSS_TOL}); gradient leaves relative "
+        f"Frobenius <= {worst[1]:.2e} ({worst[0]}; tol {TRAIN_GRAD_TOL}); "
+        "attn: " + ", ".join(f"{k.split('/')[-1]} {v:.1e}" for k, v in
+                            rels.items() if "/attn/" in k))
+
+
+@contextlib.contextmanager
+def bwd_call_check(errs):
+    """Hold every flash backward call of the enclosed run against
+    ``mha_bwd_ref`` on the same q, k, v, o, dO and lse: each gradient's
+    largest error within ``BWD_TOL`` of its largest magnitude; ``errs``
+    gets the largest share a call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import mha_bwd_ref
+    real = fa.flash_attention_bwd
+
+    def checked(q, k, v, o, do, lse, *, causal=True, variant=None):
+        got = real(q, k, v, o, do, lse, causal=causal, variant=variant)
+        want = mha_bwd_ref(q, k, v, o, do, lse, causal=causal)
+        shares = [((a.float() - w.float()).abs().max()
+                   / w.float().abs().max()).item() for a, w in zip(got, want)]
+        if not max(shares) <= BWD_TOL[q.dtype]:
+            raise AssertionError(f"flash backward call {len(errs)}: dq/dk/dv "
+                                 f"errors {shares} of their magnitudes")
+        errs.append(max(shares))
+        return got
+
+    fa.flash_attention_bwd = checked
+    try:
+        yield
+    finally:
+        fa.flash_attention_bwd = real
+
+
+def global_rel(a, b):
+    """The relative Frobenius error of two gradient trees taken whole."""
+    from repro_torch import tree as T
+    num = sum((x.float() - y.float()).square().sum().item()
+              for x, y in zip(T.leaves(a), T.leaves(b)))
+    return (num / sum(y.float().square().sum().item()
+                      for y in T.leaves(b))) ** 0.5
+
+
+def step_vs_plain_fp32(spec, params, batch, prefix):
+    """One full-width step with the flash kernel, every flash call in it
+    held to its plain version on the same inputs (forward within
+    ``LAYER_TOL``, backward within ``BWD_TOL``), and the same step with the
+    plain attention, each against the step computed in fp32 (the weights
+    upcast, ``COMPUTE_DTYPE`` float32, the plain attention): the kernel's
+    loss, and its whole gradient (relative Frobenius), no farther from
+    fp32 than the plain attention's plus ``TRAIN_LOSS_TOL`` and
+    ``TRAIN_GRAD_TOL``.  Each leaf's distances are read.
+
+    ``step_vs_plain``'s direct bound cannot hold for the hybrid: its bf16
+    mamba layers amplify any perturbation, so that on the card its bf16
+    gradients with the kernel and with the plain attention lie 11.5% from
+    each other at 6 layers of the full width, 25% at 12 and 71% at all 38,
+    and the plain attention's 14%, 28% and 72% from the fp32 gradient."""
+    from repro_torch import tree as T
+    from repro_torch.launch.steps import build_loss_and_grads, deterministic
+    loss_and_grads = build_loss_and_grads(spec)
+    ferrs, berrs = [], []
+    with per_layer_check(ferrs), bwd_call_check(berrs), deterministic():
+        lk, gk = loss_and_grads(params, batch)
+    with plain_attention(), deterministic():
+        lp, gp = loss_and_grads(params, batch)
+    n = flash_per_prefill(spec)
+    if len(ferrs) != n or len(berrs) != n:
+        raise AssertionError(f"{prefix} {spec.name} step: {len(ferrs)} flash "
+                             f"forwards, {len(berrs)} backwards, want {n}")
+    p32 = T.tree_map(lambda t: t.float(), params)
+    with plain_attention(), compute_dtype(torch.float32), deterministic():
+        l32, g32 = build_loss_and_grads(spec)(p32, batch)
+    del p32
+    dk, dp = abs(lk.item() - l32.item()), abs(lp.item() - l32.item())
+    ek, ep = global_rel(gk, g32), global_rel(gp, g32)
+    if not (dk <= dp + TRAIN_LOSS_TOL * abs(l32.item())
+            and ek <= ep + TRAIN_GRAD_TOL):
+        raise AssertionError(f"{prefix} {spec.name} against fp32: loss kernel "
+                             f"{lk.item()}, plain {lp.item()}, fp32 "
+                             f"{l32.item()}; gradient kernel {ek}, plain {ep}")
+    rk, rp, direct = rel_leaves(gk, g32), rel_leaves(gp, g32), \
+        rel_leaves(gk, gp)
+    log(f"{prefix} {spec.name} full-width step: {n} flash forwards within "
+        f"{LAYER_TOL} of the plain version (max "
+        f"{max(ferrs, default=0.0):.3e}) and {n} backwards within "
+        f"{BWD_TOL[torch.bfloat16]} of each gradient's magnitude (max "
+        f"{max(berrs, default=0.0):.3e}); against fp32: loss kernel "
+        f"{lk.item():.5f}, plain {lp.item():.5f}, fp32 {l32.item():.5f}; "
+        f"whole gradient relative kernel {ek:.3e}, plain {ep:.3e} (the "
+        f"kernel within the plain's + {TRAIN_GRAD_TOL}); by leaf, read, "
+        f"kernel / plain from fp32 <= {max(rk.values()):.3e} / "
+        f"{max(rp.values()):.3e}, kernel vs plain <= "
+        f"{max(direct.values()):.3e}; attn kernel/plain: "
+        + ", ".join(f"{k.split('/')[-1]} {rk[k]:.2e}/{rp[k]:.2e}"
+                    for k in rk if "/attn/" in k))
+
+
+def profile_train_step(spec, step, params, opt_state, batch, smi):
+    """One train step: three unprofiled walls after a warm-up, then one
+    under ``torch.profiler`` (device ms, launches, busy share, top
+    operations).  Returns (best wall ms, device ms, launches)."""
+    B, S = batch["tokens"].shape
+
+    def one_step():
+        step(params, opt_state, batch)
+
+    one_step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    step_ms = min(walls)
+    dev_ms, n_launch, top = device_profile(one_step, top=8)
+    log(f"[profile] train step {spec.name} B={B} S={S}: wall "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms "
+        f"({B * S / step_ms * 1e3:.0f} tokens/s at the best); "
+        f"device {dev_ms:.1f} ms in {n_launch} launches, busy "
+        f"{dev_ms / step_ms:.2f} of the best unprofiled wall; top: {top}; "
+        f"{smi}")
+    return step_ms, dev_ms, n_launch
+
+
+def check_resume(launches, arch, prefix):
+    """``--reduced`` training of ``arch`` on the card (seq 64, batch 8, 12
+    steps): ``--die-at 9`` exits 42, ``--restore auto`` resumes from the
+    checkpoint of step 8, and the final parameters equal the uninterrupted
+    run's bit for bit."""
+    import tempfile
+    from repro_torch import tree as T
+    small_args = ["--arch", arch, "--reduced", "--seq", "64", "--batch", "8",
+                  "--steps", "12", "--log-every", "100"]
+    pa, _, _, wall_a = train_cli(launches, small_args)
+    with tempfile.TemporaryDirectory() as ck:
+        ck_args = small_args + ["--ckpt-dir", ck, "--ckpt-every", "4"]
+        try:
+            train_cli(launches, ck_args + ["--die-at", "9"])
+        except SystemExit as e:
+            if e.code != 42:
+                raise
+        else:
+            raise AssertionError(f"train {arch} --die-at 9 did not exit")
+        pb, _, _, _ = train_cli(launches, ck_args + ["--restore", "auto"])
+    diff = [k for (k, a), (_, b) in zip(T.leaves_with_paths(pa),
+                                       T.leaves_with_paths(pb))
+            if not (a.dtype == b.dtype and torch.equal(
+                a.reshape(-1).view(torch.uint8),
+                b.reshape(-1).view(torch.uint8)))]
+    if diff:
+        raise AssertionError(f"resume {arch}: parameters differ at {diff}")
+    log(f"{prefix} {arch} resume at --reduced (seq 64): --die-at 9 exited "
+        f"42, --restore auto resumed from step 8; the final parameters "
+        f"equal the uninterrupted 12-step run's bit for bit ({wall_a:.1f} s "
+        f"for that run)")
+
+
 def phase_train(launches, smi):
     """Training (docstring item 17).  Returns (flash forward launches,
     backward launches) of the full-width CLI run, the backward kernel's
     largest error, and the training shape's inputs for the timing."""
-    import tempfile
     from repro_torch import configs, tree as T
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.launch.steps import (build_loss_and_grads,
-                                          build_train_step, deterministic)
+    from repro_torch.launch.steps import build_loss_and_grads, build_train_step
     from repro_torch.models import api
     from repro_torch.optim import OptConfig, opt_init
     from repro_torch.kernels import _build
@@ -2185,14 +2402,7 @@ def phase_train(launches, smi):
     counts = dict(launches)
     if counts != {k: n // steps for k, n in want.items()}:
         raise AssertionError(f"train step: launches {counts}")
-    norms = {"/".join(map(str, p)): n.float().cpu() for p, n in
-             T.leaves_with_paths(st["grad_norms"])}
-    bad = [k for k, n in norms.items()
-           if not (torch.isfinite(n).all() and (n > 0).all())]
-    if bad:
-        raise AssertionError(f"train step: zero or non-finite gradient in "
-                             f"{bad}")
-    lo = min(norms.items(), key=lambda kv: kv[1].min().item())
+    norms, lo = nonzero_grad_norms(st, "train step")
     log(f"[train] build_train_step at full width: launches {counts}; every "
         f"gradient leaf finite and non-zero in every layer ({len(norms)} "
         f"leaves; smallest {lo[0]} {lo[1].min().item():.3e}); attn norms "
@@ -2200,48 +2410,12 @@ def phase_train(launches, smi):
             f"{k.split('/')[-1]} {norms[k][0].item():.3e}" for k in norms
             if "/attn/" in k))
     del st
-    loss_and_grads = build_loss_and_grads(spec)
-    with deterministic():
-        lk, gk = loss_and_grads(params, batch)
-    with plain_attention(), deterministic():
-        lp, gp = loss_and_grads(params, batch)
-    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
-    rels = rel_leaves(gk, gp)
-    worst = max(rels.items(), key=lambda kv: kv[1])
-    if not (loss_rel <= TRAIN_LOSS_TOL and worst[1] <= TRAIN_GRAD_TOL):
-        raise AssertionError(f"train step vs plain attention: loss {loss_rel}"
-                             f", gradients {rels}")
-    log(f"[train] full-width step, flash kernel vs plain attention: loss "
-        f"{lk.item():.5f} vs {lp.item():.5f} (relative {loss_rel:.2e}, tol "
-        f"{TRAIN_LOSS_TOL}); gradient leaves relative Frobenius <= "
-        f"{worst[1]:.2e} ({worst[0]}; tol {TRAIN_GRAD_TOL}); attn: "
-        + ", ".join(f"{k.split('/')[-1]} {v:.1e}" for k, v in rels.items()
-                    if "/attn/" in k))
-    del gk, gp
+    step_vs_plain(spec, params, batch, "[train]")
 
     # (6a) one full-width step under the profiler, and unprofiled
-    state = opt_init(params, opt_cfg)
-
-    def one_step():
-        step(params, state, batch)
-
-    one_step()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        one_step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    step_ms = min(walls)
-    dev_ms, n_launch, top = device_profile(one_step, top=8)
-    log(f"[profile] train step qwen3-0.6b B={TRAIN_B} S={TRAIN_S}: wall "
-        f"{', '.join(f'{w:.1f}' for w in walls)} ms "
-        f"({TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} tokens/s at the best); "
-        f"device {dev_ms:.1f} ms in {n_launch} launches, busy "
-        f"{dev_ms / step_ms:.2f} of the best unprofiled wall; top: {top}; "
-        f"{smi}")
-    del params, state, batch
+    profile_train_step(spec, step, params, opt_init(params, opt_cfg), batch,
+                       smi)
+    del params, batch
     torch.cuda.empty_cache()
 
     # (4) the reduced step on the card against the CPU plain path: loss,
@@ -2283,28 +2457,7 @@ def phase_train(launches, smi):
         f"lr {lr})")
 
     # (5) resume on the card, bit-exact against an uninterrupted run
-    small_args = ["--arch", "qwen3-0.6b", "--reduced", "--seq", "64",
-                  "--batch", "8", "--steps", "12", "--log-every", "100"]
-    pa, _, _, wall_a = train_cli(launches, small_args)
-    with tempfile.TemporaryDirectory() as ck:
-        ck_args = small_args + ["--ckpt-dir", ck, "--ckpt-every", "4"]
-        try:
-            train_cli(launches, ck_args + ["--die-at", "9"])
-        except SystemExit as e:
-            if e.code != 42:
-                raise
-        else:
-            raise AssertionError("train --die-at 9 did not exit")
-        pb, _, _, _ = train_cli(launches, ck_args + ["--restore", "auto"])
-    diff = [k for (k, a), (_, b) in zip(T.leaves_with_paths(pa),
-                                       T.leaves_with_paths(pb))
-            if not torch.equal(a.view(torch.int16), b.view(torch.int16))]
-    if diff:
-        raise AssertionError(f"resume: parameters differ at {diff}")
-    log(f"[train] resume at --reduced (seq 64): --die-at 9 exited 42, "
-        f"--restore auto resumed from step 8; the final parameters equal the "
-        f"uninterrupted 12-step run's bit for bit ({wall_a:.1f} s for that "
-        f"run)")
+    check_resume(launches, "qwen3-0.6b", "[train]")
     log(f"[train] phase wall {time.perf_counter() - t_phase:.1f} s; {smi}")
     return want["flash_attention"], want["flash_attention_bwd"], bwd_err
 
@@ -2361,11 +2514,7 @@ def time_flash_bwd(launches_on_path, max_err):
     lib_name = "CUDNN_ATTENTION" if "CUDNN_ATTENTION" in by_backend else \
         min(by_backend, key=by_backend.get)
     lib_ms = by_backend[lib_name]
-    esz = torch.tensor([], dtype=dtype).element_size()
-    nbytes = esz * (4 * B * S * H * dh + 4 * B * S * KH * dh) \
-        + 4 * B * H * S                      # q,o,dO,dq; k,v,dk,dv; lse
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    flops = 5 * 2 * dh * pairs               # S, dP, dV, dQ, dK
+    nbytes, flops = bwd_work(B, S, H, KH, dh, dtype, causal)
     bound_ms, by, peak = bound(nbytes, flops, dtype)
     share = {"tc": bound_ms / ms, "simt": bound_ms / simt_ms}
     log(f"[timing] flash_attention_bwd B={B} S={S} H={H}/{KH} dh={dh} bf16 "
@@ -2381,13 +2530,343 @@ def time_flash_bwd(launches_on_path, max_err):
         + f" (library_ms: {lib_name}); bound {bound_ms:.5f} ms ({nbytes} B, "
         f"{flops} FLOP, {by}; peak {peak}); tc {ms / lib_ms:.2f}x the "
         f"library")
+    dh256 = time_flash_bwd_dh256()
     return dict(name="flash_attention_bwd", route="cuda", variant="tc",
                 source="src/repro_torch/csrc/flash_attention_bwd.cu",
                 replaces=FLASH_BWD_REPLACES, launches=launches_on_path,
                 max_abs_err=max_err, ms=ms, event_ms=ev_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                 library_ms=lib_ms, library_backend=lib_name,
-                variant_ms={"tc": ms, "simt": simt_ms}, bound_share=share)
+                variant_ms={"tc": ms, "simt": simt_ms}, bound_share=share,
+                simt_dh256=dh256)
+
+
+def bwd_work(B, S, H, KH, dh, dtype, causal):
+    """Bytes and FLOP of one flash backward: q, o, dO, dq and k, v, dk,
+    dv moved once, lse read once; five products (S, dP, dV, dQ, dK) over
+    the pairs the mask keeps."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = esz * (4 * B * S * H * dh + 4 * B * S * KH * dh) + 4 * B * H * S
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    return nbytes, 5 * 2 * dh * pairs
+
+
+def time_flash_bwd_dh256():
+    """The SIMT backward at ``BWD_SHAPES``' bf16 dh-256 shape (its 32-row
+    tiles), beside the plain version and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import mha_bwd_ref
+    _, B, S, H, KH, dh, dtype, causal = next(
+        x for x in BWD_SHAPES if x[0] == "dh 256")
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, o, do, lse, var = bwd_case(g, B, S, H, KH, dh, dtype, causal)
+    ms = device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse), 10)
+    plain_ms = device_ms(lambda: mha_bwd_ref(q, k, v, o, do, lse), 5)
+    nbytes, flops = bwd_work(B, S, H, KH, dh, dtype, causal)
+    bound_ms, by, peak = bound(nbytes, flops, dtype)
+    log(f"[timing] flash_attention_bwd B={B} S={S} H={H}/{KH} dh={dh} bf16 "
+        f"causal, the rule's {var} (32-row tiles): device {ms:.4f} ms "
+        f"({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.5f} ms ({nbytes} B, {flops} FLOP, {by}; peak {peak})")
+    return dict(shape=[B, S, H, KH, dh], variant=var, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+
+
+# ------------------------------------------------------- phases 18-19
+#: the families serving and training, at full width: (arch, flash
+#: launches a prefill); the dense ones launch one a layer, mamba2 none,
+#: zamba2 one an application of its shared attention block
+FAMILIES = (("llama3.2-3b", 28), ("yi-6b", 32), ("mamba2-130m", 0),
+            ("zamba2-1.2b", 7))
+FAMILY_PROMPT, FAMILY_GEN = 512, 32
+# Each one's prefill with the kernel is held to the plain attention per
+# layer (``LAYER_TOL``) and, end to end, no farther from the fp32 prefill
+# (the weights upcast, the plain attention) than the plain attention's
+# bf16 prefill plus ``LM_REL_TOL``; the others but the hybrid also within
+# ``LM_REL_TOL`` of the plain attention directly, as in phase 9.  zamba2's
+# 38 bf16 mamba layers amplify any perturbation: its bf16 prefill lies 24%
+# (logits) and 36% (states) from its fp32 one with the plain attention,
+# and 23% and 34% from the kernel's (on the CPU, a 12-layer hybrid of
+# width 1024: 9.4% from fp32, and 9.3% between the plain attention and one
+# that rounds P to bf16 as the kernel does)
+
+#: mamba2's one-step prefill against its token-by-token decode on the
+#: card, at the serving path's shorter prompt (one SSD chunk of 200), with
+#: the CPU test's bound (tests/test_models.py::
+#: test_mamba2_chunked_equals_stepwise), computing in fp32: the two orders
+#: of the same sums agree to about 1e-5 there.  In bf16 the comparison is
+#: read, not bounded: the two paths round the SSD's output to bf16 after
+#: sums in other orders, and 24 layers compound the flipped roundings (on
+#: the CPU: 1.1% relative at 6 layers of width 384, 3.0% at 12 of 768, 1e-5
+#: in fp32 at both)
+STEPWISE_PROMPT, STEPWISE_TOL = 200, 3e-2
+TRAIN_FAMILIES = ("mamba2-130m", "zamba2-1.2b")
+TRAIN_FAMILY_STEPS = 4
+
+
+def flash_per_prefill(spec):
+    """The flash launches one prefill makes: a layer's attention (dense)
+    or an application of the shared block's (hybrid); none for mamba2."""
+    return {"dense": spec.cfg.n_layers, "ssm": 0,
+            "hybrid": getattr(spec.cfg, "n_apps", 0)}[spec.family]
+
+
+def state_rel(a, b):
+    """The largest relative Frobenius error of two decode states, over
+    their leaves and each leaf's leading (layer or application) axis."""
+    from repro_torch import tree as T
+    return max(rel_err(x[i], y[i]) for x, y in zip(T.leaves(a), T.leaves(b))
+               for i in range(x.shape[0]) if y[i].float().norm() > 0)
+
+
+def expect_launches(launches, n, tag):
+    """Raises unless ``launches`` holds exactly ``n`` flash launches (none
+    of any other kernel), every one the tensor-core variant."""
+    want = {"flash_attention": n} if n else {}
+    if dict(launches) != want:
+        raise AssertionError(f"{tag}: launches {dict(launches)}, want {want}")
+    if variant_counts() != ({("flash_attention", "tc"): n} if n else {}):
+        raise AssertionError(f"{tag}: variants {variant_counts()}, want all "
+                             f"{n} tc")
+
+
+def phase_serve_families(launches, smi):
+    """``serve.main`` of each of ``FAMILIES`` at full width (batch 4, a
+    512-token prompt, 32 new tokens, random bf16 weights from seed 0)
+    with its flash launches counted; its prefill step with the kernel
+    against the plain attention, per layer and end to end; decode; a
+    profile of one prefill and of three decode steps; and mamba2's
+    one-step prefill against its token-by-token decode.  Returns the
+    flash launches by architecture."""
+    from repro_torch import configs, tree as T
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import api
+    t_phase = time.perf_counter()
+    B, P, G = 4, FAMILY_PROMPT, FAMILY_GEN
+    out = {}
+    for arch, n_flash in FAMILIES:
+        spec = configs.get(arch)
+        cfg = spec.cfg
+        if flash_per_prefill(spec) != n_flash:
+            raise AssertionError(f"{arch}: {flash_per_prefill(spec)} flash "
+                                 f"calls a prefill, want {n_flash}")
+        launches.clear()
+        _build.VARIANTS.clear()
+        t0 = time.perf_counter()
+        gen = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len",
+                          str(P), "--gen", str(G), "--seed", "0"])
+        wall = time.perf_counter() - t0
+        expect_launches(launches, n_flash, f"serve {arch}")
+        if gen.shape != (B, G) or gen.min() < 0 or gen.max() >= cfg.vocab:
+            raise AssertionError(f"serve {arch}: tokens {gen.shape}")
+        out[arch] = n_flash
+
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init(torch.Generator(device="cuda").manual_seed(0),
+                          spec)
+        n_params = sum(x.numel() for x in T.leaves(params))
+        prompt = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (B, P)), device="cuda")
+        errs = []
+        with per_layer_check(errs):
+            prefill(params, spec, prompt, P + G)
+        if len(errs) != n_flash:
+            raise AssertionError(f"prefill {arch}: {len(errs)} flash calls")
+        launches.clear()
+        _build.VARIANTS.clear()
+        lk, sk, k_ms = prefill(params, spec, prompt, P + G)
+        expect_launches(launches, n_flash, f"prefill {arch}")
+        with plain_attention():
+            lp, sp, p_ms = prefill(params, spec, prompt, P + G)
+            p32 = T.tree_map(lambda t: t.float(), params)
+            with compute_dtype(torch.float32):
+                l32, s32, _ = prefill(p32, spec, prompt, P + G)
+            del p32
+        logit_rel, st_rel = rel_err(lk, lp), state_rel(sk, sp)
+        anchored = [(rel_err(lk, l32), rel_err(lp, l32)),
+                    (state_rel(sk, s32), state_rel(sp, s32))]
+        if any(k > p + LM_REL_TOL for k, p in anchored) or (
+                spec.family != "hybrid" and
+                not (logit_rel <= LM_REL_TOL and st_rel <= LM_REL_TOL)):
+            raise AssertionError(f"prefill {arch}: logits relative error "
+                                 f"{logit_rel}, states {st_rel}; from fp32 "
+                                 f"(kernel, plain): {anchored}")
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        del lp, sp, l32, s32
+        step = build_serve_step(spec)
+        tok, state = lk.argmax(-1).to(torch.int32), sk
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(G):
+            tok, state = step(params, state, tok[:, None], P + i)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) / G * 1e3
+        pre = device_profile(lambda: prefill(params, spec, prompt, P + G))
+        state = api.decode_state(spec, B, P + G)
+        step(params, state, prompt, 0)
+
+        def three_steps():
+            t = tok
+            for i in range(3):
+                t, _ = step(params, state, t[:, None], P + i)
+
+        dec = device_profile(three_steps)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[serve-families] {arch} ({spec.family}, {cfg.n_layers} "
+            f"layers, d_model {cfg.d_model}, {n_params} parameters) B={B} "
+            f"P={P}: serve.main {gen.shape} tokens in [0, {cfg.vocab}), "
+            f"wall {wall:.1f} s, {n_flash} flash launches a prefill, all "
+            f"tc; each layer's flash output within {LAYER_TOL} of the "
+            f"plain version (max {max(errs, default=0.0):.3e}); vs the plain "
+            f"attention end to end: logits relative {logit_rel:.3e}, states "
+            f"relative <= {st_rel:.3e} (tol {LM_REL_TOL}"
+            f"{', read' if spec.family == 'hybrid' else ''}), greedy agreement "
+            f"{agree:.2f}; from the fp32 prefill, kernel / plain: logits "
+            f"{anchored[0][0]:.3e} / {anchored[0][1]:.3e}, states "
+            f"{anchored[1][0]:.3e} / {anchored[1][1]:.3e} (the kernel within "
+            f"the plain's + {LM_REL_TOL}); prefill {k_ms:.1f} ms ({p_ms:.1f} with the plain "
+            f"attention), decode {dec_ms:.2f} ms a step "
+            f"({B / dec_ms * 1e3:.1f} tok/s); peak memory {peak_gb:.1f} GB; "
+            f"{smi}")
+        log(f"[profile] {arch} prefill P={P}: device {pre[0]:.2f} ms, "
+            f"{pre[1]} launches, busy {pre[0] / k_ms:.2f} of the unprofiled "
+            f"{k_ms:.1f} ms; top: {pre[2]}")
+        log(f"[profile] {arch} decode: device {dec[0] / 3:.2f} ms and "
+            f"{dec[1] / 3:.0f} launches a step, busy "
+            f"{dec[0] / 3 / dec_ms:.2f} of the unprofiled {dec_ms:.2f} ms; "
+            f"top over 3 steps: {dec[2]}")
+        if spec.family == "ssm":
+            mamba_stepwise(params, spec)
+        del params, sk, state, lk, tok
+        torch.cuda.empty_cache()
+    log(f"[serve-families] phase wall {time.perf_counter() - t_phase:.1f} "
+        f"s; {smi}")
+    return out
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """The models' activation dtype (``layers.COMPUTE_DTYPE``) set to
+    ``dtype`` for the enclosed code."""
+    from repro_torch.models import layers as L
+    was, L.COMPUTE_DTYPE = L.COMPUTE_DTYPE, dtype
+    try:
+        yield
+    finally:
+        L.COMPUTE_DTYPE = was
+
+
+def mamba_stepwise(params, spec):
+    """mamba2's one-step prefill of ``STEPWISE_PROMPT`` tokens (one SSD
+    chunk) against the same tokens decoded one at a time: in fp32 (the
+    weights upcast, ``COMPUTE_DTYPE`` float32) every position's logits
+    within ``STEPWISE_TOL``; in bf16, as served, the error read."""
+    from repro_torch import tree as T
+    from repro_torch.models import api
+    B, P = 4, STEPWISE_PROMPT
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, spec.cfg.vocab, (B, P)), device="cuda")
+    reads = []
+    for dtype in (torch.float32, torch.bfloat16):
+        p = T.tree_map(lambda t: t.to(dtype) if t.dtype == torch.bfloat16
+                       else t, params)
+        with compute_dtype(dtype), torch.inference_mode():
+            full, s_full = api.apply_decode(p, spec, prompt,
+                                            api.decode_state(spec, B, P), 0)
+            state, outs = api.decode_state(spec, B, P), []
+            for i in range(P):
+                lg, state = api.apply_decode(p, spec, prompt[:, i:i + 1],
+                                             state, i)
+                outs.append(lg[:, 0])
+            dec = torch.stack(outs, 1)
+        err = close(full, dec, STEPWISE_TOL, f"mamba2 stepwise P={P}") \
+            if dtype == torch.float32 else (full - dec).abs().max().item()
+        reads.append(f"{str(dtype)[6:]}: max abs {err:.3e}, logits relative "
+                     f"{rel_err(full, dec):.3e}, final states relative "
+                     f"{state_rel(state, s_full):.3e}")
+        del p, full, dec, state, s_full
+    log(f"[serve-families] {spec.name} one-step prefill of {P} tokens vs "
+        f"{P} decode steps on the card, every position's logits ({B} "
+        f"sequences): " + "; ".join(reads) + f" (fp32 within {STEPWISE_TOL}"
+        f"; bf16 read, not bounded)")
+
+
+def phase_train_families(launches, smi):
+    """``launch.train.main`` of each of ``TRAIN_FAMILIES`` at full width
+    (4 steps of 8 x 512), its flash launches counted (zamba2: one forward
+    and one backward an application a step, the shared block outside the
+    remat, all tc); one ``build_train_step`` step with every gradient leaf
+    non-zero; that step against the plain attention; a profiled step; and
+    a bit-exact resume at ``--reduced``.  Returns the flash forward and
+    backward launches of zamba2's CLI run."""
+    from repro_torch import configs, tree as T
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, opt_init
+    t_phase = time.perf_counter()
+    steps, fwd, bwd = TRAIN_FAMILY_STEPS, 0, 0
+    for arch in TRAIN_FAMILIES:
+        spec = configs.get(arch)
+        cfg = spec.cfg
+        n = flash_per_prefill(spec)
+        want = {"flash_attention": steps * n,
+                "flash_attention_bwd": steps * n} if n else {}
+        torch.cuda.reset_peak_memory_stats()
+        _build.VARIANTS.clear()
+        params, stats, counts, wall = train_cli(
+            launches, ["--arch", arch, "--steps", str(steps), "--batch",
+                       str(TRAIN_B), "--seq", str(TRAIN_S), "--log-every",
+                       "1"])
+        if counts != want or variant_counts() != {
+                (k, "tc"): v for k, v in want.items()}:
+            raise AssertionError(f"train {arch}: launches {counts}, variants"
+                                 f" {variant_counts()}, want {want} all tc")
+        if len(stats) != steps or not all(np.isfinite(x) for st in stats
+                                          for x in st):
+            raise AssertionError(f"train {arch}: step lines {stats}")
+        n_params = sum(x.numel() for x in T.leaves(params))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        fwd += counts.get("flash_attention", 0)
+        bwd += counts.get("flash_attention_bwd", 0)
+        log(f"[train-families] {arch} full width ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {n_params} parameters; param_count() "
+            f"{cfg.param_count()}, the JAX formula), {steps} steps "
+            f"of {TRAIN_B} x {TRAIN_S}: losses "
+            f"{[round(st[0], 4) for st in stats]}, grad norms "
+            f"{[round(st[1], 3) for st in stats]}, all finite; wall "
+            f"{wall:.1f} s; launches {counts} ({n} forward and {n} backward "
+            f"a step, every one tc); peak memory {peak_gb:.1f} GB; {smi}")
+        del params
+
+        params = api.init(torch.Generator(device="cuda").manual_seed(0),
+                          spec)
+        batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                       global_batch=TRAIN_B, seed=0),
+                            device="cuda").batch(0)
+        opt_cfg = OptConfig()
+        step = build_train_step(spec, opt_cfg)
+        _, _, st = step(params, opt_init(params, opt_cfg), batch)
+        norms, lo = nonzero_grad_norms(st, f"train step {arch}")
+        log(f"[train-families] {arch} build_train_step: every gradient leaf "
+            f"finite and non-zero in every layer ({len(norms)} leaves; "
+            f"smallest {lo[0]} {lo[1].min().item():.3e})")
+        del st
+        step_vs_plain_fp32(spec, params, batch, "[train-families]")
+        torch.cuda.reset_peak_memory_stats()
+        profile_train_step(spec, step, params, opt_init(params, opt_cfg),
+                           batch, smi)
+        log(f"[train-families] {arch} peak memory of the profiled steps "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        del params, batch
+        torch.cuda.empty_cache()
+        check_resume(launches, arch, "[train-families]")
+    log(f"[train-families] phase wall {time.perf_counter() - t_phase:.1f} "
+        f"s; {smi}")
+    return fwd, bwd
 
 
 def main() -> int:
@@ -2436,10 +2915,18 @@ def main() -> int:
     compile_fused, compile_alu = phase_compile(_build.LAUNCHES, smi)
     mixed_launches = phase_serve_mixed(_build.LAUNCHES, smi)
     train_fwd, train_bwd, bwd_err = phase_train(_build.LAUNCHES, smi)
+    family_prefill = phase_serve_families(_build.LAUNCHES, smi)
+    zamba_fwd, zamba_bwd = phase_train_families(_build.LAUNCHES, smi)
     kernels.append(time_flash_bwd(train_bwd, bwd_err))
-    kernels[2]["launches_by_path"] = {"serving prefill (phase 9)":
-                                          flash_launches,
-                                      "training (phase 17)": train_fwd}
+    kernels[2]["launches_by_path"] = {
+        "serving prefill (phase 9)": flash_launches,
+        "training (phase 17)": train_fwd,
+        **{f"{arch} prefill (phase 18)": n
+           for arch, n in family_prefill.items() if n},
+        "zamba2-1.2b training (phase 19)": zamba_fwd}
+    kernels[-1]["launches_by_path"] = {
+        "qwen3-0.6b training (phase 17)": train_bwd,
+        "zamba2-1.2b training (phase 19)": zamba_bwd}
     kernels[0]["launches_by_path"] = {"staged path (phase 5)": alu_launches,
                                       "compiled binaries (phase 15)":
                                           compile_alu}

@@ -19,7 +19,7 @@
 // summed over the H / KH query heads that share a KV head (GQA).  Layout
 // as the forward's: q, o, dO, dq (B, Sq, H, dh) and k, v, dk, dv (B, Sk,
 // KH, dh), each with its own batch, sequence and head strides and a
-// contiguous last axis; float32 or bfloat16, sums in fp32; dh <= 128.
+// contiguous last axis; float32 or bfloat16, sums in fp32; dh <= 256.
 //
 // Deterministic in both variants: no float atomics.  One CTA per (64-key
 // tile, KV head, batch) owns its dK and dV rows and loops over the query
@@ -79,17 +79,22 @@
 // as the forward rounds P.  wgmma with TMA is later work.
 //
 // Variant "simt" (delta_kernel, dkv_kernel, dq_kernel): float32 (the
-// tensor cores would round it to TF32), dh 1..128, unaligned rows.  Each
-// CTA has 256 threads: 16 row groups g x 16 column lanes.  For a 64 x 64
-// tile of S or dP, thread (g, lane) owns rows 4g..4g+3 and keys lane + 16j
-// (j < 4), as in the forward's SIMT variant; the products read rows of
-// q/dO and k/v staged in shared memory as fp32 with an odd row stride, so
-// the 16 rows a half-warp reads fall in distinct banks.  For the
-// accumulators, thread (g, lane) owns rows (keys in dkv_kernel, queries
-// in dq_kernel) 4g..4g+3 and columns lane + 16j (j < dh / 16), in
-// registers; P and dS pass through shared memory between the two.  Its
-// FMAs run on the fp32 cores from shared memory with synchronous loads,
-// and its 166 KB of shared memory at dh 128 allow one CTA an SM.
+// tensor cores would round it to TF32), dh 1..256, unaligned rows.  Each
+// CTA has 256 threads: 16 row groups g x 16 column lanes, and works on
+// tiles of TR = 16 R rows (R = 4 up to dh 128, R = 2 above).  For a TR x
+// TR tile of S or dP, thread (g, lane) owns rows Rg..Rg+R-1 and keys
+// lane + 16j (j < R), as in the forward's SIMT variant; the products read
+// rows of q/dO and k/v staged in shared memory as fp32 with an odd row
+// stride, so the 16 rows a half-warp reads fall in distinct banks.  For
+// the accumulators, thread (g, lane) owns rows (keys in dkv_kernel,
+// queries in dq_kernel) Rg..Rg+R-1 and columns lane + 16j (j < dh / 16),
+// in registers; P and dS pass through shared memory between the two.  Its
+// FMAs run on the fp32 cores from shared memory with synchronous loads.
+// Shared memory holds four [TR][dh | 1] fp32 tiles: at dh 128 with 64-row
+// tiles 166 KB (dkv), one CTA an SM; at dh 256 64-row tiles would need
+// 290 KB, over the card's 227 KB a block, so the tiles there are 32 rows
+// (140 KB dkv, 136 KB dq), and the accumulators 2 rows x 16 columns a
+// thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -97,10 +102,9 @@
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per tile
-constexpr int BK = 64;         // keys per tile
+constexpr int BQ = 64;         // query rows per tile ("tc")
+constexpr int BK = 64;         // keys per tile ("tc")
 constexpr int THREADS = 256;   // 16 row groups x 16 column lanes
-constexpr int PLD = BK + 1;    // row stride of the P and dS tiles
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Strides {
@@ -120,23 +124,24 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// rows row0 .. row0+63 of head h of batch b into dst[64][ld] as fp32;
+// rows row0 .. row0+TR-1 of head h of batch b into dst[TR][ld] as fp32;
 // rows at or past n are zero
-template <typename T>
+template <int TR, typename T>
 __device__ void load_tile(float* dst, int ld, const T* __restrict__ src,
                           Strides st, int b, int h, int row0, int n, int dh) {
   const T* base = src + b * st.b + h * st.h;
-  for (int i = threadIdx.x; i < BK * dh; i += THREADS) {
+  for (int i = threadIdx.x; i < TR * dh; i += THREADS) {
     const int r = i / dh, d = i - r * dh, row = row0 + r;
     dst[r * ld + d] = row < n ? to_f(base[row * st.s + d]) : 0.f;
   }
 }
 
-// lse and D of rows q0 .. q0+63 of head h into Ls, Dl (0 past Sq)
+// lse and D of rows q0 .. q0+TR-1 of head h into Ls, Dl (0 past Sq)
+template <int TR>
 __device__ void load_rows(float* Ls, float* Dl, const float* __restrict__ lse,
                           const float* __restrict__ delta, long long bh,
                           int q0, int Sq) {
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
+  for (int i = threadIdx.x; i < TR; i += THREADS) {
     const int row = q0 + i;
     Ls[i] = row < Sq ? lse[bh * Sq + row] : 0.f;
     Dl[i] = row < Sq ? delta[bh * Sq + row] : 0.f;
@@ -165,40 +170,41 @@ __global__ void __launch_bounds__(THREADS)
   if (lane == 0) delta[row] = acc;
 }
 
-// S = A B^T and dP = C E^T for rows r0..r0+3 of A, C and rows lane + 16j
-// of B, E (all [64][ld] tiles)
+// S = A B^T and dP = C E^T for rows r0..r0+R-1 of A, C and rows lane + 16j
+// (j < R) of B, E (all [16 R][ld] tiles)
+template <int R>
 __device__ __forceinline__ void two_products(
-    float (&s)[4][4], float (&dp)[4][4], const float* A, const float* Bt,
+    float (&s)[R][R], float (&dp)[R][R], const float* A, const float* Bt,
     const float* C, const float* Et, int ld, int r0, int lane, int dh) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
   for (int d = 0; d < dh; ++d) {
-    float a[4], c[4], bv[4], ev[4];
+    float a[R], c[R], bv[R], ev[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       a[i] = A[(r0 + i) * ld + d];
       c[i] = C[(r0 + i) * ld + d];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       bv[j] = Bt[(lane + 16 * j) * ld + d];
       ev[j] = Et[(lane + 16 * j) * ld + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         s[i][j] = fmaf(a[i], bv[j], s[i][j]);
         dp[i][j] = fmaf(c[i], ev[j], dp[i][j]);
       }
   }
 }
 
-// dK and dV of one 64-key tile of one KV head: the query heads that share
+// dK and dV of one TR-key tile of one KV head: the query heads that share
 // it, then the query tiles, in that fixed order
-template <typename T, int NJ>  // NJ * 16 >= dh
+template <typename T, int NJ, int R>  // NJ * 16 >= dh; tiles of 16 R rows
 __global__ void __launch_bounds__(THREADS)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
@@ -207,49 +213,50 @@ __global__ void __launch_bounds__(THREADS)
                Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
                int rep, int H, int Sq, int Sk, int dh, float scale,
                int causal) {
+  constexpr int TR = 16 * R, PLD = TR + 1;  // PLD: P and dS row stride
   extern __shared__ float smem[];
   const int ld = dh | 1;
-  float* Ks = smem;             // [BK][ld]
-  float* Vs = Ks + BK * ld;     // [BK][ld]
-  float* Qs = Vs + BK * ld;     // [BQ][ld]
-  float* Gs = Qs + BQ * ld;     // [BQ][ld]: dO
-  float* Ps = Gs + BQ * ld;     // [BQ][PLD]: P
-  float* Ss = Ps + BQ * PLD;    // [BQ][PLD]: dS
-  float* Ls = Ss + BQ * PLD;    // [BQ]: lse
-  float* Dl = Ls + BQ;          // [BQ]: D
-  const int lane = threadIdx.x & 15, r0 = (threadIdx.x >> 4) * 4;
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
+  float* Ks = smem;             // [TR][ld]
+  float* Vs = Ks + TR * ld;     // [TR][ld]
+  float* Qs = Vs + TR * ld;     // [TR][ld]
+  float* Gs = Qs + TR * ld;     // [TR][ld]: dO
+  float* Ps = Gs + TR * ld;     // [TR][PLD]: P
+  float* Ss = Ps + TR * PLD;    // [TR][PLD]: dS
+  float* Ls = Ss + TR * PLD;    // [TR]: lse
+  float* Dl = Ls + TR;          // [TR]: D
+  const int lane = threadIdx.x & 15, r0 = (threadIdx.x >> 4) * R;
+  const int k0 = blockIdx.x * TR, hk = blockIdx.y, b = blockIdx.z;
 
-  load_tile(Ks, ld, k, ks, b, hk, k0, Sk, dh);
-  load_tile(Vs, ld, v, vs, b, hk, k0, Sk, dh);
+  load_tile<TR>(Ks, ld, k, ks, b, hk, k0, Sk, dh);
+  load_tile<TR>(Vs, ld, v, vs, b, hk, k0, Sk, dh);
 
   // keys k0 + r0 + i, columns lane + 16j
-  float dK[4][NJ], dV[4][NJ];
+  float dK[R][NJ], dV[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dK[i][j] = dV[i][j] = 0.f;
 
-  const int n_qt = (Sq + BQ - 1) / BQ;
-  const int qt0 = causal ? k0 / BQ : 0;  // no row of an earlier tile sees k0
+  const int n_qt = (Sq + TR - 1) / TR;
+  const int qt0 = causal ? k0 / TR : 0;  // no row of an earlier tile sees k0
   for (int r = 0; r < rep; ++r) {
     const int h = hk * rep + r;
     const long long bh = static_cast<long long>(b) * H + h;
     for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
+      const int q0 = qt * TR;
       __syncthreads();  // the previous tiles are consumed
-      load_tile(Qs, ld, q, qs, b, h, q0, Sq, dh);
-      load_tile(Gs, ld, dout, dos, b, h, q0, Sq, dh);
-      load_rows(Ls, Dl, lse, delta, bh, q0, Sq);
+      load_tile<TR>(Qs, ld, q, qs, b, h, q0, Sq, dh);
+      load_tile<TR>(Gs, ld, dout, dos, b, h, q0, Sq, dh);
+      load_rows<TR>(Ls, Dl, lse, delta, bh, q0, Sq);
       __syncthreads();
 
-      float s[4][4], dp[4][4];  // rows q0 + r0 + i, keys k0 + lane + 16j
-      two_products(s, dp, Qs, Ks, Gs, Vs, ld, r0, lane, dh);
+      float s[R][R], dp[R][R];  // rows q0 + r0 + i, keys k0 + lane + 16j
+      two_products<R>(s, dp, Qs, Ks, Gs, Vs, ld, r0, lane, dh);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         const int row = q0 + r0 + i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           const int key = k0 + lane + 16 * j;
           float p = 0.f;
           if (row < Sq && key < Sk && !(causal && row < key))
@@ -260,11 +267,11 @@ __global__ void __launch_bounds__(THREADS)
       }
       __syncthreads();  // P and dS are written
 
-      // dV += P^T dO, dK += dS^T Q over the tile's 64 rows
-      for (int rr = 0; rr < BQ; ++rr) {
-        float pv[4], sv[4];
+      // dV += P^T dO, dK += dS^T Q over the tile's TR rows
+      for (int rr = 0; rr < TR; ++rr) {
+        float pv[R], sv[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < R; ++i) {
           pv[i] = Ps[rr * PLD + r0 + i];
           sv[i] = Ss[rr * PLD + r0 + i];
         }
@@ -274,7 +281,7 @@ __global__ void __launch_bounds__(THREADS)
           if (c < dh) {
             const float g = Gs[rr * ld + c], qv = Qs[rr * ld + c];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
+            for (int i = 0; i < R; ++i) {
               dV[i][j] = fmaf(pv[i], g, dV[i][j]);
               dK[i][j] = fmaf(sv[i], qv, dK[i][j]);
             }
@@ -285,7 +292,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int key = k0 + r0 + i;
     if (key >= Sk) continue;
     T* krow = dk + b * dks.b + key * dks.s + hk * dks.h;
@@ -301,8 +308,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// dQ of one 64-query tile of one head: the KV tiles in order
-template <typename T, int NJ>
+// dQ of one TR-query tile of one head: the KV tiles in order
+template <typename T, int NJ, int R>
 __global__ void __launch_bounds__(THREADS)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
@@ -310,46 +317,48 @@ __global__ void __launch_bounds__(THREADS)
               T* __restrict__ dq, Strides qs, Strides ks, Strides vs,
               Strides dos, Strides dqs, int rep, int H, int Sq, int Sk,
               int dh, float scale, int causal) {
+  constexpr int TR = 16 * R, PLD = TR + 1;  // PLD: dS row stride
   extern __shared__ float smem[];
   const int ld = dh | 1;
-  float* Qs = smem;             // [BQ][ld]
-  float* Gs = Qs + BQ * ld;     // [BQ][ld]: dO
-  float* Ks = Gs + BQ * ld;     // [BK][ld]
-  float* Vs = Ks + BK * ld;     // [BK][ld]
-  float* Ss = Vs + BK * ld;     // [BQ][PLD]: dS
-  float* Ls = Ss + BQ * PLD;    // [BQ]: lse
-  float* Dl = Ls + BQ;          // [BQ]: D
-  const int lane = threadIdx.x & 15, r0 = (threadIdx.x >> 4) * 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  float* Qs = smem;             // [TR][ld]
+  float* Gs = Qs + TR * ld;     // [TR][ld]: dO
+  float* Ks = Gs + TR * ld;     // [TR][ld]
+  float* Vs = Ks + TR * ld;     // [TR][ld]
+  float* Ss = Vs + TR * ld;     // [TR][PLD]: dS
+  float* Ls = Ss + TR * PLD;    // [TR]: lse
+  float* Dl = Ls + TR;          // [TR]: D
+  const int lane = threadIdx.x & 15, r0 = (threadIdx.x >> 4) * R;
+  const int q0 = blockIdx.x * TR, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / rep;
 
-  load_tile(Qs, ld, q, qs, b, h, q0, Sq, dh);
-  load_tile(Gs, ld, dout, dos, b, h, q0, Sq, dh);
-  load_rows(Ls, Dl, lse, delta, static_cast<long long>(b) * H + h, q0, Sq);
+  load_tile<TR>(Qs, ld, q, qs, b, h, q0, Sq, dh);
+  load_tile<TR>(Gs, ld, dout, dos, b, h, q0, Sq, dh);
+  load_rows<TR>(Ls, Dl, lse, delta, static_cast<long long>(b) * H + h, q0,
+                Sq);
 
   // rows q0 + r0 + i, columns lane + 16j
-  float dQ[4][NJ];
+  float dQ[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dQ[i][j] = 0.f;
 
-  int n_tiles = (Sk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+  int n_tiles = (Sk + TR - 1) / TR;
+  if (causal) n_tiles = min(n_tiles, (q0 + TR - 1) / TR + 1);
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
+    const int k0 = t * TR;
     __syncthreads();  // the previous K tile and dS tile are consumed
-    load_tile(Ks, ld, k, ks, b, hk, k0, Sk, dh);
-    load_tile(Vs, ld, v, vs, b, hk, k0, Sk, dh);
+    load_tile<TR>(Ks, ld, k, ks, b, hk, k0, Sk, dh);
+    load_tile<TR>(Vs, ld, v, vs, b, hk, k0, Sk, dh);
     __syncthreads();
 
-    float s[4][4], dp[4][4];  // rows q0 + r0 + i, keys k0 + lane + 16j
-    two_products(s, dp, Qs, Ks, Gs, Vs, ld, r0, lane, dh);
+    float s[R][R], dp[R][R];  // rows q0 + r0 + i, keys k0 + lane + 16j
+    two_products<R>(s, dp, Qs, Ks, Gs, Vs, ld, r0, lane, dh);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int row = q0 + r0 + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int key = k0 + lane + 16 * j;
         float ds = 0.f;
         if (row < Sq && key < Sk && !(causal && row < key))
@@ -359,25 +368,25 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();  // dS is written
 
-    // dQ += dS K over the tile's 64 keys
-    for (int kk = 0; kk < BK; ++kk) {
-      float sv[4];
+    // dQ += dS K over the tile's TR keys
+    for (int kk = 0; kk < TR; ++kk) {
+      float sv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = Ss[(r0 + i) * PLD + kk];
+      for (int i = 0; i < R; ++i) sv[i] = Ss[(r0 + i) * PLD + kk];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int c = lane + 16 * j;
         if (c < dh) {
           const float kv = Ks[kk * ld + c];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dQ[i][j] = fmaf(sv[i], kv, dQ[i][j]);
+          for (int i = 0; i < R; ++i) dQ[i][j] = fmaf(sv[i], kv, dQ[i][j]);
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = q0 + r0 + i;
     if (row >= Sq) continue;
     T* dst = dq + b * dqs.b + row * dqs.s + h * dqs.h;
@@ -389,19 +398,20 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// dynamic shared memory of one CTA: four [64][dh | 1] fp32 tiles, the P
-// and dS tiles (dkv) or the dS tile (dq), and two rows of 64: 166 KB
-// (dkv) and 149 KB (dq) at dh 128, under the card's 227 KB a block
-size_t dkv_smem(int dh) {
-  return static_cast<size_t>(4 * 64 * (dh | 1) + 2 * BQ * PLD + 2 * BQ) *
-         sizeof(float);
+// dynamic shared memory of one CTA: four [TR][dh | 1] fp32 tiles, the P
+// and dS tiles (dkv) or the dS tile (dq), and two rows of TR: 166 KB
+// (dkv) and 149 KB (dq) at dh 128 (TR 64), 140 KB and 136 KB at dh 256
+// (TR 32), under the card's 227 KB a block
+size_t dkv_smem(int dh, int TR) {
+  return static_cast<size_t>(4 * TR * (dh | 1) + 2 * TR * (TR + 1) +
+                             2 * TR) * sizeof(float);
 }
-size_t dq_smem(int dh) {
-  return static_cast<size_t>(4 * 64 * (dh | 1) + BQ * PLD + 2 * BQ) *
+size_t dq_smem(int dh, int TR) {
+  return static_cast<size_t>(4 * TR * (dh | 1) + TR * (TR + 1) + 2 * TR) *
          sizeof(float);
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, int R>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, const long long* st, int B, int H, int KH,
@@ -425,14 +435,15 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  constexpr int TR = 16 * R;
   {
-    auto kernel = dkv_kernel<T, NJ>;
-    const size_t bytes = dkv_smem(dh);
+    auto kernel = dkv_kernel<T, NJ, R>;
+    const size_t bytes = dkv_smem(dh, TR);
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((Sk + BK - 1) / BK, KH, B);
+    const dim3 grid((Sk + TR - 1) / TR, KH, B);
     kernel<<<grid, THREADS, bytes, stream>>>(
         qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
         qs, ks, vs, dos, dks, dvs, rep, H, Sq, Sk, dh, scale, causal);
@@ -440,13 +451,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   {
-    auto kernel = dq_kernel<T, NJ>;
-    const size_t bytes = dq_smem(dh);
+    auto kernel = dq_kernel<T, NJ, R>;
+    const size_t bytes = dq_smem(dh, TR);
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+    const dim3 grid((Sq + TR - 1) / TR, H, B);
     kernel<<<grid, THREADS, bytes, stream>>>(
         qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), qs, ks, vs, dos,
         dqs, rep, H, Sq, Sk, dh, scale, causal);
@@ -462,16 +473,20 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
              int Sq, int Sk, int dh, float scale, int causal,
              cudaStream_t s) {
   if (dh <= 16)
-    return launch<T, 1>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B, H,
-                        KH, Sq, Sk, dh, scale, causal, s);
+    return launch<T, 1, 4>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,
+                           H, KH, Sq, Sk, dh, scale, causal, s);
   if (dh <= 32)
-    return launch<T, 2>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B, H,
-                        KH, Sq, Sk, dh, scale, causal, s);
+    return launch<T, 2, 4>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,
+                           H, KH, Sq, Sk, dh, scale, causal, s);
   if (dh <= 64)
-    return launch<T, 4>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B, H,
-                        KH, Sq, Sk, dh, scale, causal, s);
-  return launch<T, 8>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B, H, KH,
-                      Sq, Sk, dh, scale, causal, s);
+    return launch<T, 4, 4>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,
+                           H, KH, Sq, Sk, dh, scale, causal, s);
+  if (dh <= 128)
+    return launch<T, 8, 4>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,
+                           H, KH, Sq, Sk, dh, scale, causal, s);
+  // 32-row tiles: four 64-row tiles of dh 256 do not fit 227 KB
+  return launch<T, 16, 2>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B, H,
+                          KH, Sq, Sk, dh, scale, causal, s);
 }
 
 // ------------------------------------------------------ variant "tc"
@@ -929,7 +944,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // delta fp32 (B, H, Sq), contiguous (delta is scratch the launch fills).
 // `strides` holds the batch, sequence and head strides of q, k, v, o,
 // dout, dq, dk and dv, in elements, in that order (24 values, host
-// memory).  dtype: 0 float32, 1 bfloat16.  use_tc: 0 "simt" (dh 1..128),
+// memory).  dtype: 0 float32, 1 bfloat16.  use_tc: 0 "simt" (dh 1..256),
 // 1 "tc" (bfloat16, dh 64 or 128, 16-byte aligned pointers, strides
 // multiples of 8 elements: the wrapper's rule).  H % KH == 0.  Returns
 // cudaGetLastError() after the last launch.
@@ -939,7 +954,7 @@ extern "C" int flash_attention_bwd_launch(
     void* dv, const long long* strides, int B, int H, int KH, int Sq, int Sk,
     int dh, float scale, int causal, int dtype, int use_tc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh < 1 || dh > 128 || KH < 1 || H % KH)
+  if (dh < 1 || dh > 256 || KH < 1 || H % KH)
     return static_cast<int>(cudaErrorInvalidValue);
   if (use_tc) {
     if (dtype == 1 && dh == 64)

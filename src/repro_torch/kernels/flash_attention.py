@@ -54,8 +54,9 @@ from .ref import flash_attention_ref, mha_bwd_ref, mha_lse_ref, mha_ref
 #: head widths the kernel takes (its accumulator is 4 rows x dh per lane
 #: group, in registers)
 MAX_HEAD_DIM = 256
-#: head widths the backward kernel takes
-MAX_BWD_HEAD_DIM = 128
+#: head widths the backward kernel takes (its SIMT variant uses 32-row
+#: tiles above dh 128, where 64-row ones overflow shared memory)
+MAX_BWD_HEAD_DIM = MAX_HEAD_DIM
 #: head widths the tensor-core variant is built for
 TC_HEAD_DIMS = (64, 128)
 _GRID_MAX = 65535                    # gridDim.y and .z
@@ -173,7 +174,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     in q's dtype and dk, dv in k's.  ``variant``: None for the rule's
     choice (:func:`variant` over q, k, v, o and do), or ``"simt"`` to
     force the SIMT kernels.  CPU tensors take :func:`.ref.mha_bwd_ref`;
-    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (1 <= dh <= 128)
+    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (1 <= dh <= 256)
     or raise."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or \
@@ -190,9 +191,6 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, forced):
     """The backward kernels on CUDA tensors: (dq, dk, dv)."""
     B, Sq, H, dh = q.shape
     Sk, KH = k.shape[1], k.shape[2]
-    if dh > MAX_BWD_HEAD_DIM:
-        raise ValueError(f"flash_attention_bwd: dh must be <= "
-                         f"{MAX_BWD_HEAD_DIM}, got {dh}")
     if any(not x.is_cuda or x.device != q.device for x in (k, v, o, do, lse)):
         raise ValueError("flash_attention_bwd: every input must be on q's "
                          "device")

@@ -23,11 +23,13 @@ cross-entropy.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels import ops
 
@@ -43,6 +45,42 @@ def _he(gen: torch.Generator, shape, scale: float = 1.0,
     x = torch.randn(shape, generator=gen, device=device or gen.device,
                     dtype=torch.float32)
     return (x * (scale / fan_in) ** 0.5).to(dtype)
+
+
+def layer_params(stacked, i: int):
+    """Layer ``i`` of a tree of stacked weights (views, no copy)."""
+    if isinstance(stacked, dict):
+        return {k: layer_params(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+# ----------------------------------------------------------------- remat
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``"dots"``: keep what the weight
+    products (2-D ``aten.mm``) return, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(policy: str, fn):
+    """``fn`` (a layer's body) under a remat policy: ``"none"`` keeps
+    every activation; ``"full"`` checkpoints the whole body (non-reentrant:
+    only its inputs are kept and it runs again in the backward pass);
+    ``"dots"`` keeps what the weight products (``aten.mm``, the 2-D
+    products a (B, S, D) @ (D, F) projection lowers to) return and
+    recomputes the rest: the counterpart of JAX's
+    ``checkpoint_dots_with_no_batch_dims``, which saves no product with
+    batch dimensions (``aten.bmm``)."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat policy {policy!r}")
 
 
 # ----------------------------------------------------------------- norms

@@ -23,14 +23,12 @@ ported yet.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
+from .layers import layer_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,13 +106,6 @@ def init(gen: torch.Generator, cfg: LMConfig, device=None):
     return p
 
 
-def layer_params(stacked, i: int):
-    """Layer ``i`` of a tree of stacked weights (views, no copy)."""
-    if isinstance(stacked, dict):
-        return {k: layer_params(v, i) for k, v in stacked.items()}
-    return stacked[i]
-
-
 def _block(cfg: LMConfig, lp, x, positions, kv_cache=None, cache_index=None):
     h, new_cache = L.attn_apply(lp["attn"], cfg.attn,
                                 L.rmsnorm(lp["ln1"], x), positions,
@@ -150,27 +141,6 @@ def forward(params, cfg: LMConfig, tokens, *, kv_caches=None,
 
 
 # ------------------------------------------------------------------ training
-def _save_dots(ctx, op, *args, **kwargs):
-    """Selective-checkpoint policy of ``"dots"``: keep what the weight
-    products (2-D ``aten.mm``) return, recompute everything else."""
-    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _remat(cfg: LMConfig, fn):
-    """``fn`` under the remat policy ``cfg.remat``."""
-    if cfg.remat == "none":
-        return fn
-    if cfg.remat == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
-    if cfg.remat == "dots":
-        return functools.partial(
-            checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
-                create_selective_checkpoint_contexts, _save_dots))
-    raise ValueError(f"unknown remat policy {cfg.remat!r}")
-
-
 def _trunk(params, cfg: LMConfig, tokens):
     """Embedding, the layers under the remat policy, the final norm:
     (B, S, D)."""
@@ -182,7 +152,7 @@ def _trunk(params, cfg: LMConfig, tokens):
     def body(x, lp):
         return _block(cfg, lp, x, positions)[0]
 
-    body = _remat(cfg, body)
+    body = L.remat(cfg.remat, body)
     for i in range(cfg.n_layers):
         x = body(x, layer_params(params["layers"], i))
     return L.rmsnorm(params["final_norm"], x)

@@ -570,7 +570,9 @@ def test_mixed_drain_attribution_on_card(card):
 # (B, Sq, Sk, H, KH, dh, dtype, causal): the training shapes (qwen3 cut to
 # batch 2, smollm's 15/5 heads of 64), a ragged length, full attention,
 # float32 at dh 16 and Sq != Sk (the top-left causal mask) in float32 and
-# in bf16 at dh 64 (the tensor-core kernels' ragged tiles and mask)
+# in bf16 at dh 64 (the tensor-core kernels' ragged tiles and mask), and
+# dh 256 (the SIMT kernels' 32-row tiles) in bf16 at a ragged length and
+# in float32
 FLASH_BWD_SHAPES = [
     (2, 256, 256, 16, 8, 128, torch.bfloat16, True),
     (2, 200, 200, 15, 5, 64, torch.bfloat16, True),
@@ -578,6 +580,8 @@ FLASH_BWD_SHAPES = [
     (1, 70, 70, 4, 2, 16, torch.float32, True),
     (1, 40, 72, 4, 1, 32, torch.float32, True),
     (1, 40, 72, 4, 2, 64, torch.bfloat16, True),
+    (2, 200, 200, 8, 4, 256, torch.bfloat16, True),
+    (1, 96, 96, 4, 2, 256, torch.float32, True),
 ]
 
 

@@ -157,6 +157,32 @@ def test_flash_bwd_other_inputs_take_simt(case):
     assert tfa.variant(*x) == "simt"
 
 
+def test_flash_bwd_dh_256_takes_simt():
+    """The backward takes every head width the forward takes; above dh
+    128 the rule gives the SIMT kernels (32-row tiles), bf16 included."""
+    assert tfa.MAX_BWD_HEAD_DIM == tfa.MAX_HEAD_DIM == 256
+    assert tfa.variant(*bwd_inputs(dh=256)) == "simt"
+
+
+def test_mha_dh_256_differentiates_through_the_flash_function():
+    """``ops.mha`` at dh 256 under autograd goes through
+    ``FlashAttention`` (its forward saved with the lse, its backward
+    ``flash_attention_bwd``), and on the CPU its gradients are
+    ``mha_bwd_ref``'s on the same q, k, v, o, dO and lse."""
+    from repro_torch.kernels import ops
+    q, k, v = (x.float().requires_grad_(True)
+               for x in qkv(S=64, H=4, KH=2, dh=256))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1))
+    out = ops.mha(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out, (q, k, v), do)
+    o, lse = mha_lse_ref(q.detach(), k.detach(), v.detach(), causal=True)
+    want = mha_bwd_ref(q.detach(), k.detach(), v.detach(), o, do, lse,
+                       causal=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("forced", ["tc", "wgmma"])
 def test_flash_bwd_forces_only_the_simt_variant(forced):
     q, k, v, o, do = bwd_inputs()

@@ -68,16 +68,16 @@ def test_dense_configs_match_jax():
 
 
 def test_unported_families_raise():
-    for arch in ("mamba2-130m", "llama3p2-3b"):
+    for arch in ("dbrx-132b", "whisper-medium"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tconfigs.get(arch)
     with pytest.raises(KeyError):
         tconfigs.get("no-such-arch")
-    ssm = tconfigs.ArchSpec(name="x", family="ssm", cfg=None)
+    audio = tconfigs.ArchSpec(name="x", family="audio", cfg=None)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tconfigs.reduced(ssm)
+        tconfigs.reduced(audio)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tapi.decode_state(ssm, 1, 4, device="cpu")
+        tapi.decode_state(audio, 1, 4, device="cpu")
     cfg = dataclasses.replace(tconfigs.get("qwen3-0.6b").cfg, moe=object())
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tT.init(torch.Generator(), cfg)
