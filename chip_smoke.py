@@ -51,7 +51,10 @@ Phases, each printed as it ends:
    (S=200), large logits, and the model's strided GQA call, each bf16 case
    through both variants (the rule's tensor-core one and the SIMT one,
    forced by ``variant="simt"``), and a misaligned q that the rule must
-   send to the SIMT variant; matmul at the sweep's shapes, a ragged
+   send to the SIMT variant; the moe and audio families' calls
+   (``FAMILY_FWD_SHAPES``: dbrx's GQA ratio 6 at dh 128, whisper's
+   cross-attention 512 x 1500 and encoder 1500 x 1500 at dh 64, full)
+   by both variants, two calls bit-equal; matmul at the sweep's shapes, a ragged
    200x200x200 and a scalar-load shape, in both dtypes, and at
    ``kernel_micro``'s 512x512 float32 with 128 tiles, through
    ``ops.matmul`` (that call is the matmul kernel's path);
@@ -129,9 +132,10 @@ Phases, each printed as it ends:
    from cleared caches (misses in the 64- and the 96-instruction code
    buckets) and of the same drain again (no miss);
 17. training (``[train]``): the flash backward kernels against their
-   plain version (``mha_bwd_ref``) at seven shapes (qwen3's training
+   plain version (``mha_bwd_ref``) at nine shapes (qwen3's training
    shape, smollm's 15/5 heads of 64, float32 dh 16, a ragged S=200, full
-   attention, and dh 256 in bf16 and in float32), each by the rule's
+   attention, dh 256 in bf16 and in float32, whisper's cross-attention
+   512 x 1500 full, dbrx's GQA ratio 6), each by the rule's
    variant (``"tc"`` for the four bf16 shapes at dh 64 and 128,
    ``"simt"`` for float32 and dh 256) and the ``"tc"`` ones by the forced
    ``"simt"`` too, two calls bit-equal; ``repro_torch.launch.train.main``
@@ -170,7 +174,45 @@ Phases, each printed as it ends:
    on the same inputs, and its loss and whole gradient no farther from the
    fp32 step than the plain attention's plus ``TRAIN_LOSS_TOL`` and
    ``TRAIN_GRAD_TOL``; a profiled step with its peak memory; and a
-   bit-exact resume at ``--reduced``.
+   bit-exact resume at ``--reduced``;
+20. the moe family serving (``[serve-moe]``): dbrx-132b at 8 of 40 layers
+   and kimi-k2 at 1 of 61, every width as published (the cut spec built
+   by ``dataclasses.replace``, each cut logged), random bf16 weights from
+   seed 0, through ``build_serve_step`` as ``serve.main`` runs it (batch
+   4, a 512-token prompt, 32 new tokens): 8 and 1 flash launches a
+   prefill, all ``"tc"``; the prefill with every flash call within
+   ``LAYER_TOL`` of its plain version; against the plain attention end to
+   end, routing flips counted, within ``LM_REL_TOL`` where none flipped;
+   no farther from the fp32 prefill (2 layers for dbrx, 1 for kimi-k2)
+   than the plain attention's plus ``LM_REL_TOL``; the three dispatches
+   on layer 0's input at the config's capacity, drops included, within
+   ``DISPATCH_TOL`` of each other and each bit-equal over two calls;
+   ``aux_load_balance_loss`` against the CPU; prefill and decode
+   profiles and peak memory;
+21. the moe family training (``[train-moe]``): dbrx-132b at 1 layer, 3
+   steps of 8 x 512 through ``build_train_step`` with
+   ``OptConfig(mode="adamw_lite")``, 2 flash forwards and 1 backward a
+   step (GQA 6), all ``"tc"``; every gradient leaf non-zero (the router's
+   too); the step against the plain attention (``TRAIN_LOSS_TOL``,
+   ``TRAIN_GRAD_TOL``), every flash call against its plain version; a
+   profiled step; a bit-exact ``--reduced`` resume through the train CLI;
+22. the audio family serving (``[serve-audio]``): whisper-medium uncut
+   through ``serve.main`` (batch 4, a 512-token prompt, 32 new tokens,
+   the zeroed cross K/V): 48 flash launches a prefill, all ``"tc"``; then
+   ``encode`` of frames (4, 1500, 1024) from seed 0, ``cross_kv`` and the
+   prefill against them (24 + 48 launches), each flash call within
+   ``LAYER_TOL`` of its plain version, the end to end within
+   ``LM_REL_TOL`` of the plain attention and no farther from fp32 than it
+   plus ``LM_REL_TOL``; profiles and peak memory;
+23. the audio family training (``[train-audio]``): whisper-medium uncut,
+   3 AdamW steps of 8 x 512 tokens with frames (8, 1500, 1024) through
+   ``build_train_step``: 144 flash forwards and 72 backwards a step, all
+   ``"tc"``; the checks of phase 21; the resume through
+   ``CheckpointManager`` at reduced size (the train CLI refuses the audio
+   family, as the JAX CLI does); then the flash forward and backward
+   timed at the families' shapes beside their plain versions, the library
+   calls and their bounds, and the backward of
+   ``scaled_dot_product_attention`` at dh 256.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are on the card named in the
@@ -824,10 +866,21 @@ def flash_case(fn, want_fn, args, causal, tol, tag, want_variant,
     return close(got, want_fn(*args, causal=causal), tol, tag)
 
 
+#: the forward at the moe and audio families' shapes, (tag, B, S, H, KH,
+#: dh, causal), S one length or (Sq, Sk): dbrx's prefill (GQA ratio 6),
+#: whisper's cross-attention (512 queries on 1500 frames) and encoder
+#: (1500 x 1500), full and with ragged last tiles
+FAMILY_FWD_SHAPES = [("dbrx GQA 6", 4, 512, 48, 8, 128, True),
+                     ("whisper cross", 8, (512, 1500), 16, 16, 64, False),
+                     ("whisper encoder", 4, 1500, 16, 16, 64, False)]
+
+
 def phase_flash_vs_plain():
     """The sweep through both variants: every bf16 case at dh 64/128 by
     the rule's tensor-core variant and by the SIMT one; float32 and the
-    misaligned case by the SIMT one, which the rule must choose."""
+    misaligned case by the SIMT one, which the rule must choose; the
+    families' shapes (``FAMILY_FWD_SHAPES``) by both."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_gqa)
     from repro_torch.kernels.ref import flash_attention_ref, mha_ref
@@ -874,13 +927,37 @@ def phase_flash_vs_plain():
     max_err = max(max_err, flash_case(
         flash_attention_gqa, mha_ref, (qm, km, vm), True, 3e-2,
         "flash misaligned q", "simt"))
+    # the moe and audio families' calls, each by both variants, two calls
+    # bit-equal
+    fam = []
+    for tag, B, S, H, KH, dh, causal in FAMILY_FWD_SHAPES:
+        Sq, Sk = lengths(S)
+        q = rand(g, (B, Sq, H, dh), torch.bfloat16)
+        k, v = (rand(g, (B, Sk, KH, dh), torch.bfloat16) for _ in range(2))
+        want_out = mha_ref(q, k, v, causal=causal)
+        for want, forced in (("tc", None), ("simt", "simt")):
+            _build.VARIANTS.clear()
+            got = flash_attention_gqa(q, k, v, causal=causal, variant=forced)
+            again = flash_attention_gqa(q, k, v, causal=causal,
+                                        variant=forced)
+            if variant_counts() != {("flash_attention", want): 2} or \
+                    not torch.equal(got, again):
+                raise AssertionError(f"flash {tag} {want}: launched "
+                                     f"{variant_counts()}, two calls equal "
+                                     f"{torch.equal(got, again)}")
+            err = close(got, want_out, 3e-2, f"flash {tag} {want}")
+            max_err = max(max_err, err)
+            fam.append(f"{tag} {want} {err:.3e}")
+        del q, k, v, want_out, got, again
     log(f"[flash_attention] vs flash_attention_ref: {n + 4} cases (the "
         f"test_kernels sweep, S=200, each bf16 case by both variants; "
         f"large logits; GQA cache prefix by both; misaligned q by SIMT) "
         f"within tolerance (f32 2e-3, bf16 3e-2, large 1e-2); every launch "
         f"took the variant the rule or the caller named; max_abs_err "
         f"{max_err:.3e} (sweep tc {errs['tc']:.3e}, simt f32 "
-        f"{errs['simt f32']:.3e}, simt bf16 {errs['simt bf16']:.3e})")
+        f"{errs['simt f32']:.3e}, simt bf16 {errs['simt bf16']:.3e}); the "
+        f"families' shapes against mha_ref within 3e-2, two calls "
+        f"bit-equal: " + ", ".join(fam))
     return max_err
 
 
@@ -1150,7 +1227,7 @@ def bound(nbytes, flops, dtype):
         name
 
 
-def time_sdpa(qh, kh, vh):
+def time_sdpa(qh, kh, vh, causal=True):
     """``scaled_dot_product_attention`` on (B, H, S, dh) inputs: its
     device and event times unrestricted, its device time under
     ``sdpa_kernel`` restricted to each backend that takes the shape (one
@@ -1160,7 +1237,7 @@ def time_sdpa(qh, kh, vh):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     lib = partial(F.scaled_dot_product_attention, qh, kh, vh,
-                  is_causal=True, enable_gqa=True)
+                  is_causal=causal, enable_gqa=True)
     ref = lib()
     lib_ms, lib_event_ms = timed(lib, 50)
     by_backend, same = {}, []
@@ -2027,14 +2104,17 @@ TRAIN_B, TRAIN_S = 8, 512
 #: v, o, dO and lse: the largest error of each gradient within this share
 #: of its largest magnitude (bf16 outputs round at 2^-8 of their value)
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
-#: (tag, B, S, H, KH, dh, dtype, causal)
+#: (tag, B, S, H, KH, dh, dtype, causal); S is (Sq, Sk) where they differ
 BWD_SHAPES = [("qwen3 training", 8, 512, 16, 8, 128, torch.bfloat16, True),
               ("smollm 15/5 heads", 8, 512, 15, 5, 64, torch.bfloat16, True),
               ("f32 dh 16", 2, 256, 4, 2, 16, torch.float32, True),
               ("ragged S=200", 4, 200, 16, 8, 128, torch.bfloat16, True),
               ("full attention", 4, 256, 16, 8, 128, torch.bfloat16, False),
               ("dh 256", 2, 256, 8, 4, 256, torch.bfloat16, True),
-              ("f32 dh 256", 2, 256, 8, 4, 256, torch.float32, True)]
+              ("f32 dh 256", 2, 256, 8, 4, 256, torch.float32, True),
+              ("whisper cross", 8, (512, 1500), 16, 16, 64, torch.bfloat16,
+               False),
+              ("dbrx GQA 6", 4, 512, 48, 8, 128, torch.bfloat16, True)]
 #: the full-width step with the flash kernel against the same step with
 #: the plain attention: the loss within 1e-2 relative and each gradient
 #: leaf within a relative Frobenius error of 5e-2, sanity bounds like
@@ -2044,20 +2124,27 @@ BWD_SHAPES = [("qwen3 training", 8, 512, 16, 8, 128, torch.bfloat16, True),
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 5e-2
 
 
+def lengths(S):
+    """(Sq, Sk) of a shape's length: one for both, or a pair."""
+    return S if isinstance(S, tuple) else (S, S)
+
+
 def bwd_case(g, B, S, H, KH, dh, dtype, causal):
-    """Inputs of one backward call, the forward's o and lse from the
-    kernel (the variant the rule picks), and the backward's variant by
-    the rule."""
+    """Inputs of one backward call (``S``: one length or (Sq, Sk)), the
+    forward's o and lse from the kernel (the variant the rule picks), and
+    the backward's variant by the rule."""
     from repro_torch.kernels import flash_attention as fa
-    q = rand(g, (B, S, H, dh), dtype)
-    k, v = (rand(g, (B, S, KH, dh), dtype) for _ in range(2))
-    do = rand(g, (B, S, H, dh), dtype)
+    Sq, Sk = lengths(S)
+    q = rand(g, (B, Sq, H, dh), dtype)
+    k, v = (rand(g, (B, Sk, KH, dh), dtype) for _ in range(2))
+    do = rand(g, (B, Sq, H, dh), dtype)
     o, lse = fa._launch(q, k, v, causal, None, want_lse=True)
     return q, k, v, o, do, lse, fa.variant(q, k, v, o, do)
 
 
 def phase_flash_bwd_vs_plain():
-    """The backward kernels at the five shapes against ``mha_bwd_ref``,
+    """The backward kernels at every ``BWD_SHAPES`` case against
+    ``mha_bwd_ref``,
     by the rule's variant (the tensor-core one for bf16 at dh 64 and 128,
     the SIMT one for float32 dh 16) and, where the rule picks ``"tc"``,
     by the forced SIMT one too; two calls give equal bits and each launch
@@ -2468,8 +2555,6 @@ def time_flash_bwd(launches_on_path, max_err):
     turns (tc, simt, simt, tc; the lower reading of each), beside the
     plain version and the backward of ``scaled_dot_product_attention`` on
     the same inputs."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import mha_bwd_ref
@@ -2491,28 +2576,7 @@ def time_flash_bwd(launches_on_path, max_err):
     ms, simt_ms = min(reads["tc"]), min(reads["simt"])
     ev_ms = event_ms(runs["tc"][0], 10)
     plain_ms = device_ms(lambda: mha_bwd_ref(q, k, v, o, do, lse), 3)
-    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
-                  for x in (q, k, v))
-    doh = do.transpose(1, 2).contiguous()
-    by_backend = {}
-    for be in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
-               SDPBackend.EFFICIENT_ATTENTION):
-        # a backend that refuses the shape raises (and warns why)
-        with sdpa_kernel(be), warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            try:
-                out = F.scaled_dot_product_attention(
-                    qh, kh, vh, is_causal=True, enable_gqa=True)
-                torch.autograd.grad(out, (qh, kh, vh), doh,
-                                    retain_graph=True)
-            except RuntimeError:
-                continue
-            by_backend[be.name] = device_ms(
-                lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
-                                            retain_graph=True), 10)
-        del out
-    lib_name = "CUDNN_ATTENTION" if "CUDNN_ATTENTION" in by_backend else \
-        min(by_backend, key=by_backend.get)
+    by_backend, lib_name = sdpa_bwd_by_backend(q, k, v, do, causal)
     lib_ms = by_backend[lib_name]
     nbytes, flops = bwd_work(B, S, H, KH, dh, dtype, causal)
     bound_ms, by, peak = bound(nbytes, flops, dtype)
@@ -2541,13 +2605,47 @@ def time_flash_bwd(launches_on_path, max_err):
                 simt_dh256=dh256)
 
 
+def sdpa_bwd_by_backend(q, k, v, do, causal):
+    """The device ms of the backward of ``scaled_dot_product_attention``
+    (``enable_gqa``) on the flash wrapper's inputs, by each backend that
+    takes the shape, and the one to cite: cuDNN's where it runs, else the
+    fastest."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    by_backend = {}
+    for be in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION):
+        # a backend that refuses the shape raises (and warns why)
+        with sdpa_kernel(be), warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            try:
+                out = F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=causal, enable_gqa=True)
+                torch.autograd.grad(out, (qh, kh, vh), doh,
+                                    retain_graph=True)
+            except RuntimeError:
+                continue
+            by_backend[be.name] = device_ms(
+                lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                            retain_graph=True), 10)
+        del out
+    return by_backend, ("CUDNN_ATTENTION" if "CUDNN_ATTENTION" in by_backend
+                        else min(by_backend, key=by_backend.get))
+
+
 def bwd_work(B, S, H, KH, dh, dtype, causal):
     """Bytes and FLOP of one flash backward: q, o, dO, dq and k, v, dk,
     dv moved once, lse read once; five products (S, dP, dV, dQ, dK) over
-    the pairs the mask keeps."""
+    the pairs the mask keeps.  ``S``: one length, or (Sq, Sk) for full
+    attention."""
+    Sq, Sk = lengths(S)
     esz = torch.tensor([], dtype=dtype).element_size()
-    nbytes = esz * (4 * B * S * H * dh + 4 * B * S * KH * dh) + 4 * B * H * S
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    nbytes = esz * (4 * B * Sq * H * dh + 4 * B * Sk * KH * dh) + \
+        4 * B * H * Sq
+    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
     return nbytes, 5 * 2 * dh * pairs
 
 
@@ -2605,10 +2703,14 @@ TRAIN_FAMILY_STEPS = 4
 
 
 def flash_per_prefill(spec):
-    """The flash launches one prefill makes: a layer's attention (dense)
-    or an application of the shared block's (hybrid); none for mamba2."""
-    return {"dense": spec.cfg.n_layers, "ssm": 0,
-            "hybrid": getattr(spec.cfg, "n_apps", 0)}[spec.family]
+    """The flash launches one prefill makes: a layer's attention (dense,
+    moe), an application of the shared block's (hybrid), a decoder layer's
+    self- and cross-attention (audio; the encoder adds one a layer); none
+    for mamba2."""
+    cfg = spec.cfg
+    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+            "hybrid": getattr(cfg, "n_apps", 0),
+            "audio": 2 * cfg.n_layers}[spec.family]
 
 
 def state_rel(a, b):
@@ -2869,6 +2971,778 @@ def phase_train_families(launches, smi):
     return fwd, bwd
 
 
+# ------------------------------------------------------- phases 20-23
+#: the moe family served at full width, each cut in depth to what one
+#: card's 80 GB holds: (arch, layers kept).  dbrx-132b's layer is 3.26 G
+#: parameters (6.5 GB in bf16) and its embedding 1.23 GB; kimi-k2's layer
+#: 17.05 G (34.1 GB) and its embedding 2.35 GB
+SERVE_MOE = (("dbrx-132b", 8), ("kimi-k2", 1))
+#: the depth at which each one's prefill is also run in fp32 (the weights
+#: upcast), the anchor of the end to end when routing flips: dbrx's 2
+#: layers take 29 GB in fp32, kimi-k2's one 73 GB
+MOE_FP32_LAYERS = {"dbrx-132b": 2, "kimi-k2": 1}
+#: the three dispatches against each other on one layer's real input:
+#: the JAX tests' tolerance for the dispatch variants
+#: (tests/test_perf_variants.py), bf16 outputs
+DISPATCH_TOL = 3e-2
+#: training the moe family: dbrx-132b at one layer, with the
+#: memory-scaled AdamW (bf16 m, factored v): fp32 m and v, with the
+#: functional update's new trees, would pass 80 GB even at one layer.
+#: kimi-k2's parameters and their gradients alone pass 72 GB at one layer:
+#: its training is held on the CPU at reduced size
+TRAIN_MOE, TRAIN_MOE_LAYERS, TRAIN_STEPS_NEW = "dbrx-132b", 1, 3
+
+
+def cut(spec, n_layers, tag):
+    """``spec`` with ``n_layers`` layers (widths, heads, experts, top_k,
+    capacity and vocabulary unchanged); logs the cut."""
+    log(f"{tag} {spec.name} reduced: n_layers {spec.cfg.n_layers} → "
+        f"{n_layers} (one card's 80 GB)")
+    return replace(spec, cfg=replace(spec.cfg, n_layers=n_layers))
+
+
+@contextlib.contextmanager
+def recorded(module, name, record, pick):
+    """Run the enclosed code with ``module.name`` wrapped: ``record`` gets
+    ``pick(args, result)`` of every call."""
+    real = getattr(module, name)
+
+    def rec(*a):
+        out = real(*a)
+        record.append(pick(a, out))
+        return out
+
+    setattr(module, name, rec)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def routes(record):
+    """Every MoE routing of the enclosed run: its experts (G, g, k)."""
+    from repro_torch.models import moe
+    return recorded(moe, "_route", record, lambda a, out: out[1])
+
+
+def flips(a, b):
+    """Tokens whose set of experts differs between two runs' routings."""
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} routings against {len(b)}")
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+
+
+def to_fp32_in_place(tree):
+    """Every bf16 leaf of ``tree`` (nested dicts) replaced by its fp32
+    copy, the largest first, each bf16 leaf dropped once its copy exists:
+    the peak is about twice the tree's bf16 bytes plus the smallest leaf,
+    where a whole copy would hold three times."""
+    from repro_torch import tree as T
+    order = sorted(((p, x.numel()) for p, x in T.leaves_with_paths(tree)),
+                   key=lambda pn: -pn[1])
+    for path, _ in order:
+        node = tree
+        for key in path[:-1]:
+            node = node[key]
+        if node[path[-1]].dtype == torch.bfloat16:
+            node[path[-1]] = node[path[-1]].float()
+
+
+def moe_dispatch_check(lp, cfg, x, tag):
+    """The three dispatches on one layer's real input ``x`` at the config's
+    own capacity (drops included): each within ``DISPATCH_TOL`` of the
+    one-hot one, two calls of each bit-equal under deterministic
+    algorithms; ``aux_load_balance_loss`` on the card against the CPU's on
+    the same input.  Returns a line to log."""
+    from repro_torch.launch.steps import deterministic
+    from repro_torch.models import moe
+    xg, g = moe._group(x, cfg)
+    G, C = xg.shape[0], moe._capacity(cfg, g)
+    _, topi = moe._route(lp, cfg, xg)
+    onehot, rank = moe._onehot_ranks(topi, cfg.n_experts)
+    dropped = int(((rank >= C) & (onehot > 0)).sum())
+    outs, reads = {}, []
+    with torch.inference_mode(), deterministic():
+        for d in ("onehot", "sort", "scatter"):
+            c = replace(cfg, dispatch=d)
+            a, b = moe.moe_apply(lp, c, x), moe.moe_apply(lp, c, x)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag} dispatch {d}: two calls differ")
+            outs[d] = a
+        for d in ("sort", "scatter"):
+            err = close(outs[d], outs["onehot"], DISPATCH_TOL,
+                        f"{tag} {d} vs onehot")
+            reads.append(f"{d} {err:.3e}")
+        aux = moe.aux_load_balance_loss(lp, cfg, x).item()
+    aux_cpu = moe.aux_load_balance_loss(
+        {"router": lp["router"].cpu()}, cfg, x.cpu()).item()
+    if not abs(aux - aux_cpu) <= 1e-4 * abs(aux_cpu):
+        raise AssertionError(f"{tag} aux loss card {aux}, CPU {aux_cpu}")
+    return (f"the three dispatches on layer 0's input ({G} groups of {g}, "
+            f"capacity {C}, {dropped} of {topi.numel()} (token, choice) "
+            f"pairs dropped): each twice bit-equal under deterministic "
+            f"algorithms, against onehot max abs {', '.join(reads)} (tol "
+            f"{DISPATCH_TOL}); aux_load_balance_loss card {aux:.6f}, CPU "
+            f"{aux_cpu:.6f}")
+
+
+def moe_anchor(params, spec, prompt, P, G, depth, kernel, plain):
+    """The moe prefill's end to end held to fp32 at ``depth`` layers (the
+    first ``depth`` of ``params``): the kernel's logits and caches no
+    farther from the fp32 prefill (the weights upcast, the plain
+    attention) than the plain attention's plus ``LM_REL_TOL``.  ``kernel``
+    and ``plain`` are the (logits, state) of the two bf16 prefills when
+    ``depth`` is the served depth, else None (they are run here).  Frees
+    ``params``; returns a line to log."""
+    from repro_torch import tree as T
+    torch.cuda.empty_cache()
+    if kernel is None:
+        small = {k: v for k, v in params.items() if k != "layers"}
+        small["layers"] = T.tree_map(lambda t: t[:depth].clone(),
+                                     params["layers"])
+        params.clear()
+        torch.cuda.empty_cache()
+        params = small
+        spec = replace(spec, cfg=replace(spec.cfg, n_layers=depth))
+        rk, rp = [], []
+        with routes(rk):
+            kernel = prefill(params, spec, prompt, P + G)[:2]
+        with plain_attention(), routes(rp):
+            plain = prefill(params, spec, prompt, P + G)[:2]
+        n_flip = flips(rk, rp)
+    else:
+        n_flip = None
+    to_fp32_in_place(params)
+    r32 = []
+    with plain_attention(), compute_dtype(torch.float32), routes(r32):
+        l32, s32, _ = prefill(params, spec, prompt, P + G)
+    params.clear()
+    (lk, sk), (lp, sp) = kernel, plain
+    anchored = [(rel_err(lk, l32), rel_err(lp, l32)),
+                (state_rel(sk, s32), state_rel(sp, s32))]
+    if any(k > p + LM_REL_TOL for k, p in anchored):
+        raise AssertionError(f"{spec.name} at {depth} layers, from fp32 "
+                             f"(kernel, plain): {anchored}")
+    return (f"at {depth} layer(s) from the fp32 prefill, kernel / plain: "
+            f"logits {anchored[0][0]:.3e} / {anchored[0][1]:.3e}, caches "
+            f"{anchored[1][0]:.3e} / {anchored[1][1]:.3e} (the kernel within "
+            f"the plain's + {LM_REL_TOL})"
+            + ("" if n_flip is None else
+               f", {n_flip} routing flips between the two bf16 prefills"))
+
+
+def phase_serve_moe(launches, smi):
+    """``[serve-moe]``: each of ``SERVE_MOE`` at full width, cut in depth,
+    random bf16 weights from seed 0, served through ``build_serve_step``
+    as ``serve.main`` runs it (batch 4, a 512-token prompt, 32 new
+    tokens), a flash launch a layer in the prefill, every one ``"tc"``;
+    the prefill with every flash call held to its plain version, against
+    the plain attention end to end (routing flips counted; the direct
+    ``LM_REL_TOL`` bound held where no token flipped) and against fp32 at
+    ``MOE_FP32_LAYERS``; the three dispatches and the load-balance loss on
+    layer 0's input; profiles of a prefill and of three decode steps.
+    Returns the flash launches a prefill by architecture."""
+    from repro_torch import configs, tree as T
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import api, transformer
+    from repro_torch.models.layers import layer_params
+    t_phase = time.perf_counter()
+    B, P, G = 4, FAMILY_PROMPT, FAMILY_GEN
+    out = {}
+    for arch, depth in SERVE_MOE:
+        spec = cut(configs.get(arch), depth, "[serve-moe]")
+        cfg = spec.cfg
+        n_flash = flash_per_prefill(spec)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator(device="cuda").manual_seed(0),
+                          spec)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in T.leaves(params))
+        if n_params != cfg.param_count():
+            raise AssertionError(f"{arch}: {n_params} parameters, "
+                                 f"param_count() {cfg.param_count()}")
+        # the serving CLI's sequence: prompt from the seed, one prefill
+        # step at cache index 0, then one token at a time
+        prompt = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (B, P)), device="cuda")
+        step = build_serve_step(spec)
+        state = api.decode_state(spec, B, P + G)
+        launches.clear()
+        _build.VARIANTS.clear()
+        t0 = time.perf_counter()
+        tok, state = step(params, state, prompt, 0)
+        torch.cuda.synchronize()
+        pre_wall = (time.perf_counter() - t0) * 1e3
+        expect_launches(launches, n_flash, f"serve {arch} prefill")
+        launches.clear()
+        _build.VARIANTS.clear()
+        toks = []
+        t0 = time.perf_counter()
+        for i in range(G):
+            tok, state = step(params, state, tok[:, None], P + i)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) / G * 1e3
+        expect_launches(launches, 0, f"serve {arch} decode")
+        gen = torch.stack(toks, 1)
+        if gen.shape != (B, G) or gen.min() < 0 or gen.max() >= cfg.vocab:
+            raise AssertionError(f"serve {arch}: tokens {gen.shape}")
+        del state
+        out[arch] = n_flash
+
+        # the prefill: every flash call against its plain version, the
+        # end to end against the plain attention, routing flips counted
+        errs, rk, rp, x0 = [], [], [], []
+        with per_layer_check(errs), routes(rk), recorded(
+                transformer, "moe_apply", x0, lambda a, _: a[2]):
+            lk, sk, _ = prefill(params, spec, prompt, P + G)
+        if len(errs) != n_flash:
+            raise AssertionError(f"prefill {arch}: {len(errs)} flash calls")
+        with plain_attention(), routes(rp):
+            lp, sp, p_ms = prefill(params, spec, prompt, P + G)
+        n_flip = flips(rk, rp)
+        logit_rel, st_rel = rel_err(lk, lp), state_rel(sk, sp)
+        direct = logit_rel <= LM_REL_TOL and st_rel <= LM_REL_TOL
+        if not direct and n_flip == 0:
+            raise AssertionError(f"prefill {arch}: logits relative error "
+                                 f"{logit_rel}, caches {st_rel}, no "
+                                 f"routing flip")
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        dispatch = moe_dispatch_check(
+            layer_params(params["layers"], 0)["moe"], cfg.moe, x0[0],
+            f"[serve-moe] {arch}")
+        del x0, rk, rp
+
+        # profiles: one prefill, three decode steps
+        _, _, k_ms = prefill(params, spec, prompt, P + G)
+        pre = device_profile(lambda: prefill(params, spec, prompt, P + G))
+        state = api.decode_state(spec, B, P + G)
+        step(params, state, prompt, 0)
+
+        def three_steps():
+            t = tok
+            for i in range(3):
+                t, _ = step(params, state, t[:, None], P + i)
+
+        dec = device_profile(three_steps)
+        del state
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_tok = B * P * depth
+        log(f"[serve-moe] {arch} ({depth} of {configs.get(arch).cfg.n_layers}"
+            f" layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads "
+            f"of {cfg.dh}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+            f"d_ff {cfg.moe.d_ff}, capacity factor "
+            f"{cfg.moe.capacity_factor}, vocab {cfg.vocab}; {n_params} "
+            f"parameters, drawn in {init_s:.1f} s) B={B} P={P}: "
+            f"{gen.shape} tokens in [0, {cfg.vocab}); {n_flash} flash "
+            f"launches a prefill, all tc, none in decode; each flash output "
+            f"within {LAYER_TOL} of the plain version (max "
+            f"{max(errs):.3e}); vs the plain attention end to end: logits "
+            f"relative {logit_rel:.3e}, caches relative <= {st_rel:.3e} (tol "
+            f"{LM_REL_TOL}, {'held' if direct else 'passed by flips'}), "
+            f"{n_flip} of {n_tok} (token, layer) routings flipped, greedy "
+            f"agreement {agree:.2f}; {dispatch}; prefill wall {pre_wall:.1f} "
+            f"ms (serve step), {k_ms:.1f} ms with the kernel, {p_ms:.1f} ms "
+            f"with the plain attention; decode {dec_ms:.2f} ms a step "
+            f"({B / dec_ms * 1e3:.1f} tok/s); peak memory {peak_gb:.1f} GB; "
+            f"{smi}")
+        log(f"[profile] {arch} prefill P={P}: device {pre[0]:.2f} ms, "
+            f"{pre[1]} launches, busy {pre[0] / k_ms:.2f} of the unprofiled "
+            f"{k_ms:.1f} ms; top: {pre[2]}")
+        log(f"[profile] {arch} decode: device {dec[0] / 3:.2f} ms and "
+            f"{dec[1] / 3:.0f} launches a step, busy "
+            f"{dec[0] / 3 / dec_ms:.2f} of the unprofiled {dec_ms:.2f} ms; "
+            f"top over 3 steps: {dec[2]}")
+        fp32_depth = MOE_FP32_LAYERS[arch]
+        same = fp32_depth == depth
+        line = moe_anchor(params, spec, prompt, P, G, fp32_depth,
+                          (lk, sk) if same else None,
+                          (lp, sp) if same else None)
+        log(f"[serve-moe] {arch} {line}")
+        del params, lk, sk, lp, sp, tok, toks
+        torch.cuda.empty_cache()
+    log(f"[serve-moe] phase wall {time.perf_counter() - t_phase:.1f} s; "
+        f"{smi}")
+    return out
+
+
+def train_vs_plain(spec, params, batch, prefix, n_fwd, n_bwd):
+    """One step's loss and gradients with the flash kernel, every flash
+    call held to its plain version on the same inputs (``LAYER_TOL``,
+    ``BWD_TOL``; ``n_fwd`` and ``n_bwd`` calls), against the same step
+    with the plain attention, routing flips between the two counted.
+    Where no token's routing flipped, the loss and every gradient leaf
+    within ``TRAIN_LOSS_TOL`` and ``TRAIN_GRAD_TOL`` of the plain step's;
+    where some did (a flipped token's experts, and so its gradient, change
+    outright), both steps against the step in fp32 (the weights upcast,
+    the plain attention): the kernel's loss and whole gradient no farther
+    from it than the plain attention's plus the same tolerances, as
+    ``step_vs_plain_fp32`` holds the hybrid."""
+    from repro_torch import tree as T
+    from repro_torch.launch.steps import build_loss_and_grads, deterministic
+    loss_and_grads = build_loss_and_grads(spec)
+    ferrs, berrs, rk, rp = [], [], [], []
+    with per_layer_check(ferrs), bwd_call_check(berrs), routes(rk), \
+            deterministic():
+        lk, gk = loss_and_grads(params, batch)
+    with plain_attention(), routes(rp), deterministic():
+        lp, gp = loss_and_grads(params, batch)
+    if len(ferrs) != n_fwd or len(berrs) != n_bwd:
+        raise AssertionError(f"{prefix} {spec.name}: {len(ferrs)} flash "
+                             f"forwards, {len(berrs)} backwards checked, "
+                             f"want {n_fwd} and {n_bwd}")
+    n_flip = flips(rk, rp)
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    rels = rel_leaves(gk, gp)
+    worst = max(rels.items(), key=lambda kv: kv[1])
+    direct = loss_rel <= TRAIN_LOSS_TOL and worst[1] <= TRAIN_GRAD_TOL
+    if not direct and n_flip == 0:
+        raise AssertionError(f"{prefix} {spec.name} step vs plain attention:"
+                             f" loss {loss_rel}, gradients {rels}")
+    line = (f"{prefix} {spec.name} step: {n_fwd} flash forwards within "
+            f"{LAYER_TOL} of the plain version (max {max(ferrs):.3e}), "
+            f"{n_bwd} backwards within {BWD_TOL[torch.bfloat16]} of each "
+            f"gradient's magnitude (max {max(berrs):.3e}); vs the plain "
+            f"attention: loss {lk.item():.5f} vs {lp.item():.5f} (relative "
+            f"{loss_rel:.2e}), gradient leaves relative Frobenius <= "
+            f"{worst[1]:.2e} ({worst[0]}) (tol {TRAIN_LOSS_TOL} / "
+            f"{TRAIN_GRAD_TOL}, {'held' if direct else 'passed by flips'})"
+            + (f", {n_flip} of {sum(r.numel() // r.shape[-1] for r in rk)} "
+               f"token routings flipped" if rk else ""))
+    if n_flip:
+        p32 = T.tree_map(lambda t: t.float(), params)
+        with plain_attention(), compute_dtype(torch.float32), \
+                deterministic():
+            l32, g32 = loss_and_grads(p32, batch)
+        del p32
+        dk, dp = abs(lk.item() - l32.item()), abs(lp.item() - l32.item())
+        ek, ep = global_rel(gk, g32), global_rel(gp, g32)
+        if not (dk <= dp + TRAIN_LOSS_TOL * abs(l32.item())
+                and ek <= ep + TRAIN_GRAD_TOL):
+            raise AssertionError(f"{prefix} {spec.name} against fp32: loss "
+                                 f"kernel {lk.item()}, plain {lp.item()}, "
+                                 f"fp32 {l32.item()}; gradient kernel {ek}, "
+                                 f"plain {ep}")
+        line += (f"; against the fp32 step: loss kernel {lk.item():.5f}, "
+                 f"plain {lp.item():.5f}, fp32 {l32.item():.5f}, whole "
+                 f"gradient relative kernel {ek:.3e}, plain {ep:.3e} (the "
+                 f"kernel within the plain's + {TRAIN_GRAD_TOL})")
+        del g32
+    log(line)
+
+
+def train_steps(launches, spec, step, params, opt_state, batches, want,
+                prefix, smi):
+    """``len(batches)`` train steps, each launching exactly ``want``, every
+    flash launch ``"tc"``, every loss and norm finite and every gradient
+    leaf non-zero in every layer.  Returns (params, opt_state, losses)."""
+    from repro_torch.kernels import _build
+    losses, walls = [], []
+    for i, batch in enumerate(batches):
+        launches.clear()
+        _build.VARIANTS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, st = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if dict(launches) != want or variant_counts() != {
+                (k, "tc"): v for k, v in want.items()}:
+            raise AssertionError(f"{prefix} {spec.name} step {i}: launches "
+                                 f"{dict(launches)}, variants "
+                                 f"{variant_counts()}, want {want} all tc")
+        loss, gnorm = st["loss"].item(), st["grad_norm"].item()
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"{prefix} {spec.name} step {i}: loss "
+                                 f"{loss}, grad norm {gnorm}")
+        norms, lo = nonzero_grad_norms(st, f"{prefix} {spec.name} step {i}")
+        losses.append((round(loss, 4), round(gnorm, 3)))
+        del st
+    log(f"{prefix} {spec.name} {len(batches)} steps: (loss, grad norm) "
+        f"{losses}; walls {', '.join(f'{w:.0f}' for w in walls)} ms; "
+        f"launches a step {want}, every one tc; every gradient leaf finite "
+        f"and non-zero in every layer ({len(norms)} leaves; smallest "
+        f"{lo[0]} {lo[1].min().item():.3e}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; {smi}")
+    return params, opt_state
+
+
+def phase_train_moe(launches, smi):
+    """``[train-moe]``: dbrx-132b at full width, cut to
+    ``TRAIN_MOE_LAYERS``, ``TRAIN_STEPS_NEW`` steps of 8 x 512 through
+    ``build_train_step`` with ``OptConfig(mode="adamw_lite")``: 2 flash
+    forwards (``dots``) and 1 backward a layer a step, all ``"tc"`` (GQA
+    ratio 6); every gradient leaf non-zero (the router's too); the step
+    against the plain attention, every flash call against its plain
+    version; a profiled step; a bit-exact resume at ``--reduced``.
+    Returns the flash forward and backward launches of the steps."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, opt_init
+    t_phase = time.perf_counter()
+    spec = cut(configs.get(TRAIN_MOE), TRAIN_MOE_LAYERS, "[train-moe]")
+    cfg = spec.cfg
+    n = flash_per_prefill(spec)
+    want = {"flash_attention": 2 * n, "flash_attention_bwd": n}
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), spec)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B, seed=0),
+                       device="cuda")
+    opt_cfg = OptConfig(mode="adamw_lite")
+    step = build_train_step(spec, opt_cfg)
+    log(f"[train-moe] {spec.name} ({cfg.n_layers} layer, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads (GQA "
+        f"{cfg.n_heads // cfg.n_kv}), {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k}, vocab {cfg.vocab}; {cfg.param_count()} "
+        f"parameters), {TRAIN_STEPS_NEW} steps of {TRAIN_B} x {TRAIN_S}, "
+        f"OptConfig(mode='adamw_lite'); kimi-k2 is not trained on the card "
+        f"(its parameters and their gradients alone pass 72 GB at one "
+        f"layer; its training is held on the CPU at reduced size)")
+    params, opt_state = train_steps(
+        launches, spec, step, params, opt_init(params, opt_cfg),
+        [data.batch(i) for i in range(TRAIN_STEPS_NEW)], want,
+        "[train-moe]", smi)
+    del opt_state
+    batch = data.batch(TRAIN_STEPS_NEW)
+    train_vs_plain(spec, params, batch, "[train-moe]", 2 * n, n)
+    torch.cuda.reset_peak_memory_stats()
+    profile_train_step(spec, step, params, opt_init(params, opt_cfg), batch,
+                       smi)
+    log(f"[train-moe] peak memory of the profiled steps "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del params, batch
+    torch.cuda.empty_cache()
+    check_resume(launches, TRAIN_MOE, "[train-moe]")
+    log(f"[train-moe] phase wall {time.perf_counter() - t_phase:.1f} s; "
+        f"{smi}")
+    return TRAIN_STEPS_NEW * want["flash_attention"], \
+        TRAIN_STEPS_NEW * want["flash_attention_bwd"]
+
+
+def audio_prefill(params, spec, frames, prompt, max_seq):
+    """Encode ``frames``, the decoder layers' cross K/V from it, and the
+    serving prefill step against them: (last-position logits, state, ms)."""
+    from repro_torch.models import api, encdec
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        enc = encdec.encode(params, spec.cfg, frames)
+        state = api.decode_state(spec, prompt.shape[0], max_seq)
+        state["cross"] = encdec.cross_kv(params, spec.cfg, enc)
+        logits, state = api.apply_decode(params, spec, prompt, state, 0)
+    torch.cuda.synchronize()
+    return logits[:, -1].clone(), state, (time.perf_counter() - t0) * 1e3
+
+
+def phase_serve_audio(launches, smi):
+    """``[serve-audio]``: whisper-medium uncut through ``serve.main``
+    (batch 4, a 512-token prompt, 32 new tokens, the zeroed cross K/V):
+    48 flash launches a prefill (24 causal self-attentions, 24 cross), all
+    ``"tc"``; then ``encode`` of frames (4, 1500, 1024) from seed 0,
+    ``cross_kv`` and the prefill against them: 24 more (full 1500 x 1500),
+    each flash call within ``LAYER_TOL`` of its plain version, the end to
+    end (logits, KV caches and cross K/V) within ``LM_REL_TOL`` of the
+    plain attention and no farther from fp32 than it plus ``LM_REL_TOL``;
+    profiles.  Returns the flash launches (prefill, encoder)."""
+    from repro_torch import configs, tree as T
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import api
+    t_phase = time.perf_counter()
+    B, P, G = 4, FAMILY_PROMPT, FAMILY_GEN
+    spec = configs.get("whisper-medium")
+    cfg = spec.cfg
+    n_flash = flash_per_prefill(spec)
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    _build.VARIANTS.clear()
+    t0 = time.perf_counter()
+    gen = serve.main(["--arch", spec.name, "--batch", str(B), "--prompt-len",
+                      str(P), "--gen", str(G), "--seed", "0"])
+    wall = time.perf_counter() - t0
+    expect_launches(launches, n_flash, "serve whisper-medium")
+    if gen.shape != (B, G) or gen.min() < 0 or gen.max() >= cfg.vocab:
+        raise AssertionError(f"serve whisper: tokens {gen.shape}")
+
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), spec)
+    n_params = sum(x.numel() for x in T.leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"whisper: {n_params} parameters")
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, P)), device="cuda")
+    frames = torch.randn((B, cfg.enc_len, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0)).bfloat16()
+    errs = []
+    launches.clear()
+    _build.VARIANTS.clear()
+    with per_layer_check(errs):
+        lk, sk, _ = audio_prefill(params, spec, frames, prompt, P + G)
+    n_enc = cfg.n_layers
+    expect_launches(launches, n_enc + n_flash, "whisper encode + prefill")
+    if len(errs) != n_enc + n_flash:
+        raise AssertionError(f"whisper: {len(errs)} flash calls checked")
+    with plain_attention():
+        lp, sp, p_ms = audio_prefill(params, spec, frames, prompt, P + G)
+        p32 = T.tree_map(lambda t: t.float(), params)
+        with compute_dtype(torch.float32):
+            l32, s32, _ = audio_prefill(p32, spec, frames.float(), prompt,
+                                        P + G)
+        del p32
+    logit_rel, st_rel = rel_err(lk, lp), state_rel(sk, sp)
+    anchored = [(rel_err(lk, l32), rel_err(lp, l32)),
+                (state_rel(sk, s32), state_rel(sp, s32))]
+    if not (logit_rel <= LM_REL_TOL and st_rel <= LM_REL_TOL) or any(
+            k > p + LM_REL_TOL for k, p in anchored):
+        raise AssertionError(f"whisper prefill: logits relative {logit_rel}, "
+                             f"states {st_rel}; from fp32 {anchored}")
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    del lp, sp, l32, s32
+    _, _, k_ms = audio_prefill(params, spec, frames, prompt, P + G)
+    pre = device_profile(lambda: audio_prefill(params, spec, frames, prompt,
+                                               P + G))
+    step = build_serve_step(spec)
+    tok, state = lk.argmax(-1).to(torch.int32), sk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(G):
+        tok, state = step(params, state, tok[:, None], P + i)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) / G * 1e3
+
+    def three_steps():
+        t = tok
+        for i in range(3):
+            t, _ = step(params, state, t[:, None], P + G - 3 + i)
+
+    dec = device_profile(three_steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[serve-audio] whisper-medium ({cfg.n_layers} + {cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads of "
+        f"{cfg.d_model // cfg.n_heads}, enc_len {cfg.enc_len}, vocab "
+        f"{cfg.vocab}; {n_params} parameters, uncut) B={B} P={P}: "
+        f"serve.main {gen.shape} tokens in [0, {cfg.vocab}) against the "
+        f"zeroed cross K/V, wall {wall:.1f} s, {n_flash} flash launches a "
+        f"prefill ({cfg.n_layers} causal self, {cfg.n_layers} cross {P} x "
+        f"{cfg.enc_len}), all tc; with frames ({B}, {cfg.enc_len}, "
+        f"{cfg.d_model}): encode + cross_kv + prefill {n_enc} + {n_flash} "
+        f"launches (the encoder's full {cfg.enc_len} x {cfg.enc_len}), all "
+        f"tc, each within {LAYER_TOL} of the plain version (max "
+        f"{max(errs):.3e}); vs the plain attention end to end: logits "
+        f"relative {logit_rel:.3e}, states (KV caches, cross K/V) relative "
+        f"<= {st_rel:.3e} (tol {LM_REL_TOL}), greedy agreement {agree:.2f}; "
+        f"from the fp32 prefill, kernel / plain: logits "
+        f"{anchored[0][0]:.3e} / {anchored[0][1]:.3e}, states "
+        f"{anchored[1][0]:.3e} / {anchored[1][1]:.3e}; encode + prefill "
+        f"{k_ms:.1f} ms ({p_ms:.1f} with the plain attention), decode "
+        f"{dec_ms:.2f} ms a step ({B / dec_ms * 1e3:.1f} tok/s); peak memory "
+        f"{peak_gb:.1f} GB; {smi}")
+    log(f"[profile] whisper-medium encode + prefill P={P}: device "
+        f"{pre[0]:.2f} ms, {pre[1]} launches, busy {pre[0] / k_ms:.2f} of "
+        f"the unprofiled {k_ms:.1f} ms; top: {pre[2]}")
+    log(f"[profile] whisper-medium decode: device {dec[0] / 3:.2f} ms and "
+        f"{dec[1] / 3:.0f} launches a step, busy {dec[0] / 3 / dec_ms:.2f} "
+        f"of the unprofiled {dec_ms:.2f} ms; top over 3 steps: {dec[2]}")
+    del params, state, sk, lk, tok, frames
+    torch.cuda.empty_cache()
+    log(f"[serve-audio] phase wall {time.perf_counter() - t_phase:.1f} s; "
+        f"{smi}")
+    return n_flash, n_enc
+
+
+def audio_batch(spec, step, B, S, device):
+    """A training batch of the audio family: the synthetic token stream's
+    batch ``step`` (B x S) and fp32 frames (B, enc_len, d_model) drawn
+    from ``step`` on ``device``."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    cfg = spec.cfg
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                   global_batch=B, seed=0),
+                        device=device).batch(step)
+    batch["frames"] = torch.randn(
+        (B, cfg.enc_len, cfg.d_model), device=device,
+        generator=torch.Generator(device=device).manual_seed(step))
+    return batch
+
+
+def check_resume_audio(spec, prefix):
+    """The reduced whisper on the card: 12 AdamW steps (batch 8 x 64)
+    uninterrupted, against 8 steps checkpointed every 4 by
+    ``CheckpointManager``, restored into fresh trees and run to 12: the
+    same parameters and optimizer state, bit for bit (the train CLI
+    refuses the audio family, as the JAX CLI does)."""
+    import tempfile
+    from repro_torch import configs, tree as T
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, opt_init
+    small = configs.reduced(spec)
+    opt_cfg = OptConfig()
+    step = build_train_step(small, opt_cfg)
+
+    def run(params, opt, lo, hi, mgr=None):
+        for i in range(lo, hi):
+            params, opt, _ = step(params, opt,
+                                  audio_batch(small, i, 8, 64, "cuda"))
+            if mgr:
+                mgr.maybe_save(i + 1, {"params": params, "opt": opt})
+        return params, opt
+
+    def fresh(seed):
+        p = api.init(torch.Generator(device="cuda").manual_seed(seed), small)
+        return p, opt_init(p, opt_cfg)
+
+    a = run(*fresh(0), 0, 12)
+    with tempfile.TemporaryDirectory() as ck:
+        mgr = CheckpointManager(ck, every=4)
+        run(*fresh(0), 0, 8, mgr)
+        p, o = fresh(1)
+        restored, start = mgr.resume({"params": p, "opt": o})
+        if start != 8:
+            raise AssertionError(f"{prefix} resume from step {start}")
+        b = run(restored["params"], restored["opt"], 8, 12)
+    diff = [k for (k, x), (_, y) in zip(T.leaves_with_paths(a),
+                                       T.leaves_with_paths(b))
+            if not (x.dtype == y.dtype and torch.equal(
+                x.reshape(-1).view(torch.uint8),
+                y.reshape(-1).view(torch.uint8)))]
+    if diff:
+        raise AssertionError(f"{prefix} resume: trees differ at {diff}")
+    log(f"{prefix} whisper-medium resume at reduced size (8 x 64): 8 steps "
+        f"checkpointed every 4, restored into fresh trees at step 8 and run "
+        f"to 12: parameters and optimizer state equal to the uninterrupted "
+        f"run's bit for bit")
+
+
+def phase_train_audio(launches, smi):
+    """``[train-audio]``: whisper-medium uncut, ``TRAIN_STEPS_NEW`` AdamW
+    steps of 8 x 512 tokens with frames (8, 1500, 1024) through
+    ``build_train_step``: 144 flash forwards (the 72 attentions, twice
+    under ``dots``) and 72 backwards a step, all ``"tc"``; every gradient
+    leaf non-zero; the step against the plain attention, every flash call
+    against its plain version; a profiled step; a bit-exact resume through
+    ``CheckpointManager`` at reduced size.  Returns the flash forward and
+    backward launches of the steps."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, opt_init
+    t_phase = time.perf_counter()
+    spec = configs.get("whisper-medium")
+    n = 3 * spec.cfg.n_layers
+    want = {"flash_attention": 2 * n, "flash_attention_bwd": n}
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), spec)
+    opt_cfg = OptConfig()
+    step = build_train_step(spec, opt_cfg)
+    log(f"[train-audio] whisper-medium uncut ({spec.cfg.param_count()} "
+        f"parameters), {TRAIN_STEPS_NEW} AdamW steps of {TRAIN_B} x "
+        f"{TRAIN_S} tokens with frames ({TRAIN_B}, {spec.cfg.enc_len}, "
+        f"{spec.cfg.d_model})")
+    params, opt_state = train_steps(
+        launches, spec, step, params, opt_init(params, opt_cfg),
+        [audio_batch(spec, i, TRAIN_B, TRAIN_S, "cuda")
+         for i in range(TRAIN_STEPS_NEW)], want, "[train-audio]", smi)
+    batch = audio_batch(spec, TRAIN_STEPS_NEW, TRAIN_B, TRAIN_S, "cuda")
+    train_vs_plain(spec, params, batch, "[train-audio]", 2 * n, n)
+    torch.cuda.reset_peak_memory_stats()
+    profile_train_step(spec, step, params, opt_state, batch, smi)
+    log(f"[train-audio] peak memory of the profiled steps "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    check_resume_audio(spec, "[train-audio]")
+    log(f"[train-audio] phase wall {time.perf_counter() - t_phase:.1f} s; "
+        f"{smi}")
+    return TRAIN_STEPS_NEW * want["flash_attention"], \
+        TRAIN_STEPS_NEW * want["flash_attention_bwd"]
+
+
+def time_family_shapes():
+    """The flash forward at dbrx's prefill call (GQA 6, dh 128, causal) and
+    whisper's encoder call (full 1500 x 1500, dh 64), and the backward at
+    ``BWD_SHAPES``' "dbrx GQA 6" and "whisper cross" cases, each beside
+    its plain version, the library call and the bound; and the backward of
+    ``scaled_dot_product_attention`` at the "dh 256" case (the library
+    time of the SIMT backward's row).  Returns {"forward": ...,
+    "backward": ..., "library_bwd_dh256": ...}."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import mha_bwd_ref, mha_ref
+    g = torch.Generator(device="cuda").manual_seed(23)
+    out = {"forward": {}, "backward": {}}
+    for tag, B, S, H, KH, dh, causal in FAMILY_FWD_SHAPES:
+        if tag == "whisper cross":
+            continue
+        Sq, Sk = lengths(S)
+        q = rand(g, (B, Sq, H, dh), torch.bfloat16)
+        k, v = (rand(g, (B, Sk, KH, dh), torch.bfloat16) for _ in range(2))
+        ms = device_ms(lambda: fa.flash_attention_gqa(q, k, v,
+                                                      causal=causal), 20)
+        plain_ms = device_ms(lambda: mha_ref(q, k, v, causal=causal), 5)
+        _, lib_ms, _, by_backend, backend = time_sdpa(
+            *(x.transpose(1, 2).contiguous() for x in (q, k, v)),
+            causal=causal)
+        nbytes = 2 * (2 * B * Sq * H * dh + 2 * B * Sk * KH * dh)
+        flops = 4 * dh * B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+        bound_ms, by, peak = bound(nbytes, flops, torch.bfloat16)
+        log(f"[timing] flash_attention {tag} B={B} Sq={Sq} Sk={Sk} "
+            f"H={H}/{KH} dh={dh} bf16 causal={causal}: tc {ms:.4f} ms "
+            f"({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms (ran {backend}; "
+            + ", ".join(f"{n_} {t:.4f}" for n_, t in by_backend.items())
+            + f"); bound {bound_ms:.5f} ms ({nbytes} B, {flops} FLOP, {by}; "
+            f"peak {peak})")
+        out["forward"][tag] = dict(ms=ms, plain_ms=plain_ms,
+                                   library_ms=lib_ms, library_backend=backend,
+                                   bound_ms=bound_ms, bound_by=by)
+        del q, k, v
+    for tag in ("dbrx GQA 6", "whisper cross", "dh 256"):
+        _, B, S, H, KH, dh, dtype, causal = next(
+            x for x in BWD_SHAPES if x[0] == tag)
+        q, k, v, o, do, lse, var = bwd_case(g, B, S, H, KH, dh, dtype,
+                                            causal)
+        by_backend, lib_name = sdpa_bwd_by_backend(q, k, v, do, causal)
+        if tag == "dh 256":
+            out["library_bwd_dh256"] = dict(
+                ms=by_backend[lib_name], backend=lib_name,
+                by_backend=by_backend)
+            log(f"[timing] scaled_dot_product_attention backward at dh 256 "
+                f"(B={B} S={S} H={H}/{KH} bf16 causal): {lib_name} "
+                f"{by_backend[lib_name]:.4f} ms; by backend "
+                + ", ".join(f"{n_} {t:.4f} ms" for n_, t in
+                            by_backend.items()))
+            continue
+        ms = device_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, do, lse, causal=causal), 10)
+        plain_ms = device_ms(lambda: mha_bwd_ref(q, k, v, o, do, lse,
+                                                 causal=causal), 3)
+        nbytes, flops = bwd_work(B, S, H, KH, dh, dtype, causal)
+        bound_ms, by, peak = bound(nbytes, flops, dtype)
+        log(f"[timing] flash_attention_bwd {tag} B={B} S={S} H={H}/{KH} "
+            f"dh={dh} bf16 causal={causal}: {var} {ms:.4f} ms "
+            f"({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention backward {lib_name} "
+            f"{by_backend[lib_name]:.4f} ms (" + ", ".join(
+                f"{n_} {t:.4f}" for n_, t in by_backend.items())
+            + f"); bound {bound_ms:.5f} ms ({nbytes} B, {flops} FLOP, {by}; "
+            f"peak {peak})")
+        out["backward"][tag] = dict(ms=ms, variant=var, plain_ms=plain_ms,
+                                    library_ms=by_backend[lib_name],
+                                    library_backend=lib_name,
+                                    bound_ms=bound_ms, bound_by=by)
+        del q, k, v, o, do, lse
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from the repository (src/repro_torch "
@@ -2917,16 +3791,35 @@ def main() -> int:
     train_fwd, train_bwd, bwd_err = phase_train(_build.LAUNCHES, smi)
     family_prefill = phase_serve_families(_build.LAUNCHES, smi)
     zamba_fwd, zamba_bwd = phase_train_families(_build.LAUNCHES, smi)
+    moe_prefill = phase_serve_moe(_build.LAUNCHES, smi)
+    moe_fwd, moe_bwd = phase_train_moe(_build.LAUNCHES, smi)
+    audio_prefill_n, audio_enc = phase_serve_audio(_build.LAUNCHES, smi)
+    audio_fwd, audio_bwd = phase_train_audio(_build.LAUNCHES, smi)
     kernels.append(time_flash_bwd(train_bwd, bwd_err))
+    shapes = time_family_shapes()
     kernels[2]["launches_by_path"] = {
         "serving prefill (phase 9)": flash_launches,
         "training (phase 17)": train_fwd,
         **{f"{arch} prefill (phase 18)": n
            for arch, n in family_prefill.items() if n},
-        "zamba2-1.2b training (phase 19)": zamba_fwd}
+        "zamba2-1.2b training (phase 19)": zamba_fwd,
+        **{f"{arch} prefill (phase 20)": n
+           for arch, n in moe_prefill.items()},
+        f"{TRAIN_MOE} training (phase 21)": moe_fwd,
+        "whisper-medium prefill (phase 22)": audio_prefill_n,
+        "whisper-medium encoder (phase 22)": audio_enc,
+        "whisper-medium training (phase 23)": audio_fwd}
+    kernels[2]["shapes"] = shapes["forward"]
     kernels[-1]["launches_by_path"] = {
         "qwen3-0.6b training (phase 17)": train_bwd,
-        "zamba2-1.2b training (phase 19)": zamba_bwd}
+        "zamba2-1.2b training (phase 19)": zamba_bwd,
+        f"{TRAIN_MOE} training (phase 21)": moe_bwd,
+        "whisper-medium training (phase 23)": audio_bwd}
+    kernels[-1]["shapes"] = shapes["backward"]
+    kernels[-1]["simt_dh256"]["library_ms"] = \
+        shapes["library_bwd_dh256"]["ms"]
+    kernels[-1]["simt_dh256"]["library_backend"] = \
+        shapes["library_bwd_dh256"]["backend"]
     kernels[0]["launches_by_path"] = {"staged path (phase 5)": alu_launches,
                                       "compiled binaries (phase 15)":
                                           compile_alu}

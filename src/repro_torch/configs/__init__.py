@@ -3,11 +3,12 @@
 Each module exposes ``SPEC: ArchSpec``.  ``get(name)`` returns it;
 ``reduced(spec)`` builds the same-family small config for CPU tests.
 Ported so far: the dense decoders qwen3-0.6b, smollm-360m (the training
-CLI's default architecture), llama3.2-3b and yi-6b; mamba2-130m (ssm);
-zamba2-1.2b (hybrid); and flexgrip, the paper's overlay configuration (a
-``MachineConfig``).  ``get`` of any other architecture of ``ARCH_IDS``
-raises "not yet ported", and so does ``reduced`` of the moe, audio and vlm
-families.
+CLI's default architecture), llama3.2-3b and yi-6b; the mixtures of
+experts dbrx-132b and kimi-k2 (moe); mamba2-130m (ssm); zamba2-1.2b
+(hybrid); whisper-medium (audio, an encoder-decoder); and flexgrip, the
+paper's overlay configuration (a ``MachineConfig``).  ``get`` of any
+other architecture of ``ARCH_IDS`` raises "not yet ported", and so does
+``reduced`` of the vlm family.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ ARCH_IDS = (
 )
 #: the architectures whose modules the port has
 PORTED = ("qwen3_0p6b", "smollm_360m", "llama3p2_3b", "yi_6b",
-          "mamba2_130m", "zamba2_1p2b", "flexgrip")
+          "dbrx_132b", "kimi_k2", "mamba2_130m", "zamba2_1p2b",
+          "whisper_medium", "flexgrip")
 
 # assigned input shapes (LM family): name -> (seq_len, global_batch, kind)
 SHAPES: Dict[str, Tuple[int, int, str]] = {
@@ -71,18 +73,25 @@ SKIP_QUADRATIC = ("pure full-attention arch: a 524k dense-attention decode "
 
 
 def reduced(spec: ArchSpec) -> ArchSpec:
-    """Same-family tiny config for CPU tests (the dense, ssm and hybrid
-    families; the others are not yet ported)."""
+    """Same-family tiny config for CPU tests (every family but vlm, which
+    is not yet ported)."""
+    from repro_torch.models.encdec import EncDecConfig
     from repro_torch.models.hybrid import HybridConfig
     from repro_torch.models.mamba2 import Mamba2Config
+    from repro_torch.models.moe import MoEConfig
     from repro_torch.models.transformer import LMConfig
 
     c = spec.cfg
-    if spec.family == "dense":
+    if spec.family in ("dense", "moe"):
+        moe = None
+        if c.moe is not None:
+            moe = MoEConfig(n_experts=4, top_k=2, d_model=64, d_ff=96,
+                            capacity_factor=c.moe.capacity_factor,
+                            dispatch=c.moe.dispatch)
         small = LMConfig(name=c.name + "-smoke", n_layers=2, d_model=64,
                          n_heads=4, n_kv=max(1, c.n_kv * 4 // c.n_heads),
                          d_ff=128, vocab=256, head_dim=16,
-                         qk_norm=c.qk_norm)
+                         qk_norm=c.qk_norm, moe=moe)
     elif spec.family == "ssm":
         small = Mamba2Config(name=c.name + "-smoke", n_layers=2,
                              d_model=64, vocab=256, d_state=16,
@@ -92,6 +101,10 @@ def reduced(spec: ArchSpec) -> ArchSpec:
                              d_model=64, vocab=256, n_heads=4, n_kv=4,
                              d_ff=128, d_state=16, head_dim=16,
                              attn_every=2)
+    elif spec.family == "audio":
+        small = EncDecConfig(name=c.name + "-smoke", n_layers=2,
+                             d_model=64, n_heads=4, n_kv=4, d_ff=128,
+                             vocab=256, enc_len=32)
     else:
         raise NotImplementedError(
             f"reduced() of the {spec.family!r} family is not yet ported")

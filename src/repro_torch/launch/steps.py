@@ -70,12 +70,17 @@ def build_loss_and_grads(spec: ArchSpec, accum: int = 1):
     return loss_and_grads
 
 
+#: the parameter subtrees whose leaves are stacked on a leading layer axis
+STACKED = ("layers", "enc", "dec")
+
+
 def grad_norms(grads):
     """The gradient's norm by leaf, fp32: a vector over the layers for a
-    stacked layer weight, a 0-d tensor for the others."""
+    stacked layer weight (under ``"layers"``, or the encoder-decoder's
+    ``"enc"`` and ``"dec"``), a 0-d tensor for the others."""
     def norm(path, g):
         g = g.float()
-        if path[0] == "layers":
+        if path[0] in STACKED:
             return g.reshape(g.shape[0], -1).norm(dim=1)
         return g.norm()
 

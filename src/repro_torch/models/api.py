@@ -1,11 +1,12 @@
 """Family-dispatched model API (port of ``repro.models.api``).
 
 ``init``, ``param_shapes``, ``apply_train``, ``decode_state`` and
-``apply_decode`` for the dense, ssm (mamba2) and hybrid (zamba2)
-families; the other families of the JAX package (moe, audio, vlm) raise
-"not yet ported".  Decode state is the stacked KV caches (dense,
-hybrid) and SSD + conv states (ssm, hybrid), written in place by each
-step.
+``apply_decode`` for the dense and moe (``transformer``), ssm (mamba2),
+hybrid (zamba2) and audio (``encdec``, whisper) families; the JAX
+package's vlm family raises "not yet ported".  Decode state is the
+stacked KV caches (dense, moe, hybrid, audio), SSD + conv states (ssm,
+hybrid), written in place by each step, and the audio family's cross
+K/V, which a step returns unchanged.
 """
 from __future__ import annotations
 
@@ -15,10 +16,11 @@ import torch
 
 from ..configs import ArchSpec
 from ..core.pipeline.state import resolve_device
-from . import hybrid, layers as L, mamba2, transformer
+from . import encdec, hybrid, layers as L, mamba2, transformer
 
 #: the model module of each ported family
-_MODELS = {"dense": transformer, "ssm": mamba2, "hybrid": hybrid}
+_MODELS = {"dense": transformer, "moe": transformer, "ssm": mamba2,
+           "hybrid": hybrid, "audio": encdec}
 
 
 def _model(spec: ArchSpec):
@@ -42,21 +44,28 @@ def param_shapes(spec: ArchSpec):
 
 def apply_train(params, spec: ArchSpec, batch) -> torch.Tensor:
     """The token-mean loss of one batch ({"tokens", "labels"}, each (B, S)
-    integer).  The ssm and hybrid families take the full logits and
+    integer; the audio family also ``"frames"``, (B, enc_len, D)).  The
+    ssm, hybrid and audio families take the full logits and
     ``softmax_xent``, as the JAX package does."""
     model = _model(spec)
     tokens, labels = batch["tokens"], batch["labels"]
-    if spec.family == "dense":
+    if spec.family in ("dense", "moe"):
         return transformer.loss(params, spec.cfg, tokens, labels)
-    return L.softmax_xent(model.forward(params, spec.cfg, tokens), labels)
+    if spec.family == "audio":
+        logits = encdec.forward(params, spec.cfg, batch["frames"], tokens)
+    else:
+        logits = model.forward(params, spec.cfg, tokens)
+    return L.softmax_xent(logits, labels)
 
 
 def decode_state(spec: ArchSpec, batch: int, max_seq: int, *,
                  device="cuda"):
-    """Zeroed decode state for ``serve_step``: dense {"kv": (k, v)}, each
-    (L, B, max_seq, K, dh) bf16; ssm {"ssm": {"conv", "ssm"}}; hybrid
-    {"ssm": ..., "kv": (k, v)} with the KV caches (n_apps, B, max_seq, K,
-    dh)."""
+    """Zeroed decode state for ``serve_step``: dense and moe {"kv": (k,
+    v)}, each (L, B, max_seq, K, dh) bf16; ssm {"ssm": {"conv", "ssm"}};
+    hybrid {"ssm": ..., "kv": (k, v)} with the KV caches (n_apps, B,
+    max_seq, K, dh); audio {"kv": ..., "cross": (k, v)} with the cross K/V
+    each (L, B, enc_len, K, dh), zeroed too (serving decodes against it as
+    the JAX CLI does; ``encdec.cross_kv`` gives the real one)."""
     _model(spec)
     cfg, device = spec.cfg, resolve_device(device)
     if spec.family == "ssm":
@@ -64,9 +73,16 @@ def decode_state(spec: ArchSpec, batch: int, max_seq: int, *,
     if spec.family == "hybrid":
         m, kv = hybrid.init_decode_state(cfg, batch, max_seq, device=device)
         return {"ssm": m, "kv": kv}
-    kd = (cfg.n_layers, batch, max_seq, cfg.n_kv, cfg.dh)
-    return {"kv": (torch.zeros(kd, dtype=L.COMPUTE_DTYPE, device=device),
-                   torch.zeros(kd, dtype=L.COMPUTE_DTYPE, device=device))}
+
+    def zeros(length, dh):
+        kd = (cfg.n_layers, batch, length, cfg.n_kv, dh)
+        return (torch.zeros(kd, dtype=L.COMPUTE_DTYPE, device=device),
+                torch.zeros(kd, dtype=L.COMPUTE_DTYPE, device=device))
+
+    if spec.family == "audio":
+        dh = cfg.d_model // cfg.n_heads
+        return {"kv": zeros(max_seq, dh), "cross": zeros(cfg.enc_len, dh)}
+    return {"kv": zeros(max_seq, cfg.dh)}
 
 
 def apply_decode(params, spec: ArchSpec, tokens, state,
@@ -84,6 +100,11 @@ def apply_decode(params, spec: ArchSpec, tokens, state,
             params, spec.cfg, tokens, states=state["ssm"],
             kv_caches=state["kv"], cache_index=cache_index)
         return logits, {"ssm": st, "kv": kv}
+    if spec.family == "audio":
+        logits, kv = encdec.decode(
+            params, spec.cfg, tokens, cross=state["cross"],
+            kv_caches=state["kv"], cache_index=cache_index)
+        return logits, {"kv": kv, "cross": state["cross"]}
     logits, kv = transformer.forward(
         params, spec.cfg, tokens, kv_caches=state["kv"],
         cache_index=cache_index)

@@ -14,7 +14,8 @@ Conventions, as in the JAX package:
 Prefill and training attention go through
 :func:`repro_torch.kernels.ops.mha`, the flash kernel on the card (its
 forward, and under autograd its backward kernel; :func:`attn_apply` says
-which shapes).  :func:`chunked_attention` is the JAX package's
+which shapes), and the encoder-decoder's full attention through
+:func:`full_attention`.  :func:`chunked_attention` is the JAX package's
 memory-efficient schedule in plain torch, each query chunk recomputed in
 the backward pass (``torch.utils.checkpoint``), as ``jax.checkpoint`` does
 there; :func:`softmax_xent_chunked` does the same for the big-vocabulary
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..kernels import flash_attention as _fa
 from ..kernels import ops
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -186,6 +188,31 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512):
     outs = [checkpoint(one_chunk, qg[:, i], i * q_chunk, use_reentrant=False)
             for i in range(S // q_chunk)]
     return torch.stack(outs, 1).reshape(B, S, H, dh)
+
+
+#: the longest query that :func:`full_attention` gives the plain version
+#: (decode steps)
+FULL_ATTENTION_PLAIN_MAX_SQ = 8
+
+
+def full_attention(q, k, v):
+    """Full (non-causal) attention, the encoder-decoder's encoder
+    self-attention and decoder cross-attention: ``causal_attention(q, k,
+    v, causal=False)`` in the JAX package.  q (B, Sq, H, dh), k/v (B, Sk,
+    K, dh).
+
+    With Sq > :data:`FULL_ATTENTION_PLAIN_MAX_SQ` it is the flash kernel,
+    ``flash_attention_gqa(causal=False)`` (``FlashAttention`` under
+    autograd); a decode step's few queries take the plain
+    :func:`causal_attention`.  It does not go through ``ops.tile_ok``:
+    that rule (the TPU kernel's blocks must divide both lengths) rejects
+    whisper's 1500 encoder frames, while the port's kernels mask a ragged
+    last tile, forward and backward; and full attention has no mask to
+    align, so the kernel computes the plain version's function at every
+    length.  On CPU tensors the flash wrapper takes its plain version."""
+    if q.shape[1] > FULL_ATTENTION_PLAIN_MAX_SQ:
+        return _fa.flash_attention_gqa(q, k, v, causal=False)
+    return causal_attention(q, k, v, causal=False)
 
 
 # -------------------------------------------------------------- attention block

@@ -1,5 +1,5 @@
-"""Dense decoder-only transformer (port of ``repro.models.transformer``,
-the llama/qwen family).
+"""Dense / MoE decoder-only transformer (port of
+``repro.models.transformer``, the llama/qwen/dbrx family).
 
 Layer weights are stacked on a leading ``L`` axis as in the JAX package;
 where it scans over them, :func:`forward` and :func:`loss` loop, one layer
@@ -17,8 +17,8 @@ JAX package applies it to its scan body:
 
 So on the card one training step launches the flash forward once a layer
 under ``"none"`` and twice under ``"dots"`` and ``"full"`` (the recompute),
-and the flash backward once a layer.  Mixture-of-experts layers are not
-ported yet.
+and the flash backward once a layer.  A mixture-of-experts layer
+(``cfg.moe``) runs ``moe.moe_apply`` in the FFN's place.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import torch
 
 from . import layers as L
 from .layers import layer_params
+from .moe import MoEConfig, moe_apply, moe_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +44,7 @@ class LMConfig:
     head_dim: Optional[int] = None
     qk_norm: bool = False
     rope_theta: float = 10000.0
-    moe: Optional[object] = None   # MoE is not yet ported: must stay None
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = True
     # remat policy of each layer in ``loss``: "none" | "dots" | "full"
     remat: str = "dots"
@@ -76,29 +77,37 @@ class LMConfig:
         return self.n_layers * per_layer + V * D + D + \
             (0 if self.tie_embeddings else V * D)
 
-
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers are not yet ported to "
-            "repro_torch")
+    def active_param_count(self) -> int:
+        if not self.moe:
+            return self.param_count()
+        D = self.d_model
+        attn = D * self.n_heads * self.dh + 2 * D * self.n_kv * self.dh + \
+            self.n_heads * self.dh * D
+        ffn = self.moe.top_k * 3 * D * self.moe.d_ff + \
+            D * self.moe.n_experts
+        per_layer = attn + ffn + 2 * D
+        return self.n_layers * per_layer + self.vocab * D + D
 
 
 def init(gen: torch.Generator, cfg: LMConfig, device=None):
     """Random bf16 parameters on ``device`` (default: ``gen``'s), the JAX
     package's tree with every layer weight stacked on a leading ``L``
-    axis.  ``device="meta"`` gives the shapes without storage."""
-    _dense_only(cfg)
+    axis (a moe layer's ``"moe"`` in the place of ``"ffn"``).
+    ``device="meta"`` gives the shapes without storage."""
     lead, dev = (cfg.n_layers,), device or gen.device
+    layers = {
+        "ln1": L.rmsnorm_init(cfg.d_model, device=dev, lead=lead),
+        "ln2": L.rmsnorm_init(cfg.d_model, device=dev, lead=lead),
+        "attn": L.attn_init(gen, cfg.attn, lead=lead, device=dev),
+    }
+    if cfg.moe:
+        layers["moe"] = moe_init(gen, cfg.moe, lead=lead, device=dev)
+    else:
+        layers["ffn"] = L.ffn_init(gen, cfg.d_model, cfg.d_ff, lead=lead,
+                                   device=dev)
     p = {
         "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, device=dev),
-        "layers": {
-            "ln1": L.rmsnorm_init(cfg.d_model, device=dev, lead=lead),
-            "ln2": L.rmsnorm_init(cfg.d_model, device=dev, lead=lead),
-            "attn": L.attn_init(gen, cfg.attn, lead=lead, device=dev),
-            "ffn": L.ffn_init(gen, cfg.d_model, cfg.d_ff, lead=lead,
-                              device=dev),
-        },
+        "layers": layers,
         "final_norm": L.rmsnorm_init(cfg.d_model, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -111,7 +120,11 @@ def _block(cfg: LMConfig, lp, x, positions, kv_cache=None, cache_index=None):
                                 L.rmsnorm(lp["ln1"], x), positions,
                                 kv_cache=kv_cache, cache_index=cache_index)
     x = x + h
-    x = x + L.ffn_apply(lp["ffn"], L.rmsnorm(lp["ln2"], x))
+    hn = L.rmsnorm(lp["ln2"], x)
+    if cfg.moe:
+        x = x + moe_apply(lp["moe"], cfg.moe, hn)
+    else:
+        x = x + L.ffn_apply(lp["ffn"], hn)
     return x, new_cache
 
 
@@ -123,7 +136,6 @@ def forward(params, cfg: LMConfig, tokens, *, kv_caches=None,
     and returned with the logits.  (The JAX function's ``prefix_embed``
     serves the VLM family, not ported yet.)
     """
-    _dense_only(cfg)
     x = L.embed_apply(params["embed"], tokens)
     B, S, D = x.shape
     start = 0 if cache_index is None else int(cache_index)
@@ -163,7 +175,6 @@ def loss(params, cfg: LMConfig, tokens, labels):
     big-vocabulary cross-entropy when ``cfg.loss_chunk > 0``.  (The JAX
     function's ``prefix_embed`` / ``prefix_drop`` serve the VLM family,
     not ported yet.)"""
-    _dense_only(cfg)
     x = _trunk(params, cfg, tokens)
     head = params.get("lm_head", params["embed"])
     if cfg.loss_chunk <= 0:

@@ -703,3 +703,67 @@ def test_reduced_train_step_on_card_matches_cpu(card):
     for a, b in zip(T.leaves(grads[1]), T.leaves(grads[0])):
         torch.testing.assert_close(a.cpu().float(), b.float(), rtol=5e-2,
                                    atol=5e-3)
+
+
+# (B, Sq, Sk, H, KH, dh, causal): the shapes of the moe and audio families
+# (dbrx's GQA ratio 6 at dh 128; whisper's encoder, 1500 frames, and its
+# cross-attention, 512 queries on them, at dh 64: ragged last tiles)
+FAMILY_FLASH_SHAPES = [(1, 512, 512, 48, 8, 128, True),
+                       (1, 1500, 1500, 16, 16, 64, False),
+                       (1, 512, 1500, 16, 16, 64, False)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,dh,causal", FAMILY_FLASH_SHAPES)
+def test_family_shapes_forward_and_backward(card, B, Sq, Sk, H, KH, dh,
+                                            causal):
+    """The tensor-core forward within 3e-2 of ``mha_ref`` and the backward
+    within 2e-2 of each gradient's magnitude of ``mha_bwd_ref``, two calls
+    of each bit-equal."""
+    from repro_torch.kernels.ref import mha_bwd_ref
+    q, k, v, do = _bwd_inputs(card, B, Sq, Sk, H, KH, dh, torch.bfloat16)
+    _build.LAUNCHES.clear()
+    _build.VARIANTS.clear()
+    o, lse = tfa._launch(q, k, v, causal, None, want_lse=True)
+    o2 = flash_attention_gqa(q, k, v, causal=causal)
+    assert torch.equal(o, o2)
+    torch.testing.assert_close(o.float(), mha_ref(q, k, v, causal=causal)
+                               .float(), rtol=3e-2, atol=3e-2)
+    got = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    again = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert dict(_build.VARIANTS) == {("flash_attention", "tc"): 2,
+                                     ("flash_attention_bwd", "tc"): 2}
+    want = mha_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2 * float(w.float().abs().max()))
+
+
+@pytest.mark.parametrize("factor", [1.25, 8.0])
+def test_moe_dispatches_deterministic_on_card(card, factor):
+    """The three dispatches and their gradients on the card under
+    ``torch.use_deterministic_algorithms``: two calls give equal bits, and
+    each is within bf16 tolerance (3e-2) of the CPU's."""
+    from repro_torch.launch.steps import deterministic
+    from repro_torch.models import moe
+    cfg = moe.MoEConfig(n_experts=16, top_k=4, d_model=256, d_ff=384,
+                        capacity_factor=factor, group_size=128)
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((2, 256, 256), generator=torch.Generator()
+                    .manual_seed(1)).bfloat16()
+    pc = {k: t.to(card) for k, t in p.items()}
+    for dispatch in ("onehot", "sort", "scatter"):
+        c = replace(cfg, dispatch=dispatch)
+        runs = []
+        with deterministic():
+            for _ in range(2):
+                xc = x.to(card).requires_grad_(True)
+                out = moe.moe_apply(pc, c, xc)
+                runs.append((out,) + torch.autograd.grad(
+                    out.float().square().sum(), xc))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), dispatch
+        torch.testing.assert_close(runs[0][0].cpu().float(),
+                                   moe.moe_apply(p, c, x).float(),
+                                   rtol=3e-2, atol=3e-2)

@@ -287,3 +287,65 @@ def test_from_numpy_defaults_to_the_card(monkeypatch):
     assert got["w"].device.type == "cpu" and got["w"].dtype == torch.float32
     assert isinstance(got["layers"], tuple)
     assert torch.equal(got["layers"][0], torch.arange(4))
+
+
+@pytest.mark.parametrize("Sq,want", [(9, "flash"), (512, "flash"),
+                                     (8, "plain"), (1, "plain")])
+def test_full_attention_routes_by_query_length(monkeypatch, Sq, want):
+    """``layers.full_attention`` (the encoder-decoder's encoder and cross
+    attention) sends Sq > 8 to ``flash_attention_gqa(causal=False)``
+    whatever Sk (no ``tile_ok``: Sk 75 is ragged), and a decode step's
+    queries to the plain ``causal_attention(causal=False)``.  The choice
+    reads the query length alone, so a CUDA tensor takes the same branch,
+    where the wrapper launches the kernel."""
+    from repro_torch.models import layers as tL
+    seen = []
+    real = tfa.flash_attention_gqa
+
+    def spy(q, k, v, *, causal=True, variant=None):
+        seen.append(causal)
+        return real(q, k, v, causal=causal, variant=variant)
+
+    monkeypatch.setattr(tfa, "flash_attention_gqa", spy)
+    q = torch.randn((2, Sq, 4, 64), generator=torch.Generator()
+                    .manual_seed(Sq)).bfloat16()
+    k, v = (torch.randn((2, 75, 2, 64), generator=torch.Generator()
+                        .manual_seed(s)).bfloat16() for s in (1, 2))
+    got = tL.full_attention(q, k, v)
+    assert seen == ([False] if want == "flash" else [])
+    if want == "plain":
+        assert torch.equal(got, tL.causal_attention(q, k, v, causal=False))
+    else:
+        assert torch.equal(got, mha_ref(q, k, v, causal=False))
+
+
+def test_whisper_encoder_shape_takes_tc():
+    """whisper-medium's encoder call, (4, 1500, 16, 64) bf16 with 16 KV
+    heads, and its cross-attention (512 queries against the 1500 frames):
+    the rule gives the tensor-core kernel, ragged last tile and all."""
+    q = torch.zeros((4, 1500, 16, 64), dtype=torch.bfloat16)
+    assert tfa.variant(q, q, q) == "tc"
+    qx = torch.zeros((4, 512, 16, 64), dtype=torch.bfloat16)
+    assert tfa.variant(qx, q, q) == "tc"
+    assert tfa.variant(*(x.transpose(1, 2).contiguous().transpose(1, 2)
+                         for x in (q, q, q))) == "tc"
+
+
+def test_full_attention_differentiates_through_the_flash_function():
+    """``layers.full_attention`` at Sq 40, Sk 75 under autograd goes
+    through ``FlashAttention`` without a mask, and on the CPU its
+    gradients are ``mha_bwd_ref``'s on the same q, k, v, o, dO and lse."""
+    from repro_torch.models import layers as tL
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn((2, 40, 4, 64), generator=g).requires_grad_(True)
+    k, v = (torch.randn((2, 75, 2, 64), generator=g).requires_grad_(True)
+            for _ in range(2))
+    do = torch.randn((2, 40, 4, 64), generator=g)
+    out = tL.full_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out, (q, k, v), do)
+    o, lse = mha_lse_ref(q.detach(), k.detach(), v.detach(), causal=False)
+    want = mha_bwd_ref(q.detach(), k.detach(), v.detach(), o, do, lse,
+                       causal=False)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
