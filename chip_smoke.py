@@ -51,10 +51,11 @@ Phases, each printed as it ends:
    (S=200), large logits, and the model's strided GQA call, each bf16 case
    through both variants (the rule's tensor-core one and the SIMT one,
    forced by ``variant="simt"``), and a misaligned q that the rule must
-   send to the SIMT variant; the moe and audio families' calls
+   send to the SIMT variant; the moe, audio and vlm families' calls
    (``FAMILY_FWD_SHAPES``: dbrx's GQA ratio 6 at dh 128, whisper's
-   cross-attention 512 x 1500 and encoder 1500 x 1500 at dh 64, full)
-   by both variants, two calls bit-equal; matmul at the sweep's shapes, a ragged
+   cross-attention 512 x 1500 and encoder 1500 x 1500 at dh 64, full, by
+   both variants; paligemma's 8/1 heads of 256 by the rule's SIMT one),
+   two calls bit-equal; matmul at the sweep's shapes, a ragged
    200x200x200 and a scalar-load shape, in both dtypes, and at
    ``kernel_micro``'s 512x512 float32 with 128 tiles, through
    ``ops.matmul`` (that call is the matmul kernel's path);
@@ -132,10 +133,11 @@ Phases, each printed as it ends:
    from cleared caches (misses in the 64- and the 96-instruction code
    buckets) and of the same drain again (no miss);
 17. training (``[train]``): the flash backward kernels against their
-   plain version (``mha_bwd_ref``) at nine shapes (qwen3's training
+   plain version (``mha_bwd_ref``) at ten shapes (qwen3's training
    shape, smollm's 15/5 heads of 64, float32 dh 16, a ragged S=200, full
    attention, dh 256 in bf16 and in float32, whisper's cross-attention
-   512 x 1500 full, dbrx's GQA ratio 6), each by the rule's
+   512 x 1500 full, dbrx's GQA ratio 6, paligemma's training shape, 8/1
+   heads of 256), each by the rule's
    variant (``"tc"`` for the four bf16 shapes at dh 64 and 128,
    ``"simt"`` for float32 and dh 256) and the ``"tc"`` ones by the forced
    ``"simt"`` too, two calls bit-equal; ``repro_torch.launch.train.main``
@@ -209,10 +211,26 @@ Phases, each printed as it ends:
    ``build_train_step``: 144 flash forwards and 72 backwards a step, all
    ``"tc"``; the checks of phase 21; the resume through
    ``CheckpointManager`` at reduced size (the train CLI refuses the audio
-   family, as the JAX CLI does); then the flash forward and backward
-   timed at the families' shapes beside their plain versions, the library
-   calls and their bounds, and the backward of
-   ``scaled_dot_product_attention`` at dh 256.
+   family, as the JAX CLI does);
+24. the vlm family serving (``[serve-vlm]``): paligemma-3b uncut (18
+   layers, d_model 2048, 8/1 heads of 256, vocabulary 257216) through
+   ``serve.main`` (batch 4, a 512-token text prompt, 32 new tokens, no
+   patches, as the JAX CLI serves it): 18 flash launches a prefill, all
+   ``"simt"`` (dh 256); then image patches (4, 256, 1152) from numpy seed
+   0 and 256 text tokens through ``vlm.forward`` with caches (18
+   ``"simt"`` launches, each within ``LAYER_TOL`` of its plain version),
+   32 decode steps, 200 text tokens behind the patches (456 positions:
+   the plain attention by ``tile_ok``, 0 launches), the 512-position
+   prefill against the plain attention end to end within ``LM_REL_TOL``;
+   profiles and peak memory;
+25. the vlm family training (``[train-vlm]``): paligemma-3b uncut, 3 AdamW
+   steps of 8 x (256 patches + 256 text) through ``build_train_step``: 36
+   flash forwards and 18 backwards a step, all ``"simt"``; the checks of
+   phase 23 (``vision_proj``'s gradient non-zero too); then the flash
+   forward and backward timed at the families' shapes (paligemma's SIMT
+   ones among them) beside their plain versions, the library calls and
+   their bounds, and the backward of ``scaled_dot_product_attention`` at
+   dh 256.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are on the card named in the
@@ -866,22 +884,26 @@ def flash_case(fn, want_fn, args, causal, tol, tag, want_variant,
     return close(got, want_fn(*args, causal=causal), tol, tag)
 
 
-#: the forward at the moe and audio families' shapes, (tag, B, S, H, KH,
-#: dh, causal), S one length or (Sq, Sk): dbrx's prefill (GQA ratio 6),
-#: whisper's cross-attention (512 queries on 1500 frames) and encoder
-#: (1500 x 1500), full and with ragged last tiles
+#: the forward at the moe, audio and vlm families' shapes, (tag, B, S, H,
+#: KH, dh, causal), S one length or (Sq, Sk): dbrx's prefill (GQA ratio
+#: 6), whisper's cross-attention (512 queries on 1500 frames) and encoder
+#: (1500 x 1500), full and with ragged last tiles, and paligemma's prefill
+#: (one KV head of 256: the SIMT variant by the rule)
 FAMILY_FWD_SHAPES = [("dbrx GQA 6", 4, 512, 48, 8, 128, True),
                      ("whisper cross", 8, (512, 1500), 16, 16, 64, False),
-                     ("whisper encoder", 4, 1500, 16, 16, 64, False)]
+                     ("whisper encoder", 4, 1500, 16, 16, 64, False),
+                     ("paligemma MQA dh 256", 4, 512, 8, 1, 256, True)]
 
 
 def phase_flash_vs_plain():
     """The sweep through both variants: every bf16 case at dh 64/128 by
     the rule's tensor-core variant and by the SIMT one; float32 and the
     misaligned case by the SIMT one, which the rule must choose; the
-    families' shapes (``FAMILY_FWD_SHAPES``) by both."""
+    families' shapes (``FAMILY_FWD_SHAPES``) by both at dh 64/128, by the
+    rule's SIMT one at dh 256."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (TC_HEAD_DIMS,
+                                                     flash_attention,
                                                      flash_attention_gqa)
     from repro_torch.kernels.ref import flash_attention_ref, mha_ref
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -927,15 +949,17 @@ def phase_flash_vs_plain():
     max_err = max(max_err, flash_case(
         flash_attention_gqa, mha_ref, (qm, km, vm), True, 3e-2,
         "flash misaligned q", "simt"))
-    # the moe and audio families' calls, each by both variants, two calls
-    # bit-equal
+    # the moe, audio and vlm families' calls, two calls bit-equal: at dh
+    # 64/128 by both variants, at dh 256 by the rule's SIMT one, unforced
     fam = []
     for tag, B, S, H, KH, dh, causal in FAMILY_FWD_SHAPES:
         Sq, Sk = lengths(S)
         q = rand(g, (B, Sq, H, dh), torch.bfloat16)
         k, v = (rand(g, (B, Sk, KH, dh), torch.bfloat16) for _ in range(2))
         want_out = mha_ref(q, k, v, causal=causal)
-        for want, forced in (("tc", None), ("simt", "simt")):
+        runs = (("tc", None), ("simt", "simt")) if dh in TC_HEAD_DIMS \
+            else (("simt", None),)
+        for want, forced in runs:
             _build.VARIANTS.clear()
             got = flash_attention_gqa(q, k, v, causal=causal, variant=forced)
             again = flash_attention_gqa(q, k, v, causal=causal,
@@ -957,7 +981,7 @@ def phase_flash_vs_plain():
         f"{max_err:.3e} (sweep tc {errs['tc']:.3e}, simt f32 "
         f"{errs['simt f32']:.3e}, simt bf16 {errs['simt bf16']:.3e}); the "
         f"families' shapes against mha_ref within 3e-2, two calls "
-        f"bit-equal: " + ", ".join(fam))
+        f"bit-equal, dh 256 by the rule's simt: " + ", ".join(fam))
     return max_err
 
 
@@ -2114,7 +2138,9 @@ BWD_SHAPES = [("qwen3 training", 8, 512, 16, 8, 128, torch.bfloat16, True),
               ("f32 dh 256", 2, 256, 8, 4, 256, torch.float32, True),
               ("whisper cross", 8, (512, 1500), 16, 16, 64, torch.bfloat16,
                False),
-              ("dbrx GQA 6", 4, 512, 48, 8, 128, torch.bfloat16, True)]
+              ("dbrx GQA 6", 4, 512, 48, 8, 128, torch.bfloat16, True),
+              ("paligemma training", 8, 512, 8, 1, 256, torch.bfloat16,
+               True)]
 #: the full-width step with the flash kernel against the same step with
 #: the plain attention: the loss within 1e-2 relative and each gradient
 #: leaf within a relative Frobenius error of 5e-2, sanity bounds like
@@ -2705,9 +2731,12 @@ TRAIN_FAMILY_STEPS = 4
 def flash_per_prefill(spec):
     """The flash launches one prefill makes: a layer's attention (dense,
     moe), an application of the shared block's (hybrid), a decoder layer's
-    self- and cross-attention (audio; the encoder adds one a layer); none
+    self- and cross-attention (audio; the encoder adds one a layer); a
+    layer's attention of the vlm's LM over the prefix and the text; none
     for mamba2."""
     cfg = spec.cfg
+    if spec.family == "vlm":
+        return cfg.lm.n_layers
     return {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
             "hybrid": getattr(cfg, "n_apps", 0),
             "audio": 2 * cfg.n_layers}[spec.family]
@@ -2721,15 +2750,16 @@ def state_rel(a, b):
                for i in range(x.shape[0]) if y[i].float().norm() > 0)
 
 
-def expect_launches(launches, n, tag):
+def expect_launches(launches, n, tag, variant="tc"):
     """Raises unless ``launches`` holds exactly ``n`` flash launches (none
-    of any other kernel), every one the tensor-core variant."""
+    of any other kernel), every one ``variant`` (the tensor-core one
+    unless named)."""
     want = {"flash_attention": n} if n else {}
     if dict(launches) != want:
         raise AssertionError(f"{tag}: launches {dict(launches)}, want {want}")
-    if variant_counts() != ({("flash_attention", "tc"): n} if n else {}):
+    if variant_counts() != ({("flash_attention", variant): n} if n else {}):
         raise AssertionError(f"{tag}: variants {variant_counts()}, want all "
-                             f"{n} tc")
+                             f"{n} {variant}")
 
 
 def phase_serve_families(launches, smi):
@@ -3336,10 +3366,11 @@ def train_vs_plain(spec, params, batch, prefix, n_fwd, n_bwd):
 
 
 def train_steps(launches, spec, step, params, opt_state, batches, want,
-                prefix, smi):
+                prefix, smi, variant="tc"):
     """``len(batches)`` train steps, each launching exactly ``want``, every
-    flash launch ``"tc"``, every loss and norm finite and every gradient
-    leaf non-zero in every layer.  Returns (params, opt_state, losses)."""
+    flash launch ``variant`` (the tensor-core one unless named), every
+    loss and norm finite and every gradient leaf non-zero in every layer.
+    Returns (params, opt_state)."""
     from repro_torch.kernels import _build
     losses, walls = [], []
     for i, batch in enumerate(batches):
@@ -3351,10 +3382,11 @@ def train_steps(launches, spec, step, params, opt_state, batches, want,
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         if dict(launches) != want or variant_counts() != {
-                (k, "tc"): v for k, v in want.items()}:
+                (k, variant): v for k, v in want.items()}:
             raise AssertionError(f"{prefix} {spec.name} step {i}: launches "
                                  f"{dict(launches)}, variants "
-                                 f"{variant_counts()}, want {want} all tc")
+                                 f"{variant_counts()}, want {want} all "
+                                 f"{variant}")
         loss, gnorm = st["loss"].item(), st["grad_norm"].item()
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError(f"{prefix} {spec.name} step {i}: loss "
@@ -3364,8 +3396,8 @@ def train_steps(launches, spec, step, params, opt_state, batches, want,
         del st
     log(f"{prefix} {spec.name} {len(batches)} steps: (loss, grad norm) "
         f"{losses}; walls {', '.join(f'{w:.0f}' for w in walls)} ms; "
-        f"launches a step {want}, every one tc; every gradient leaf finite "
-        f"and non-zero in every layer ({len(norms)} leaves; smallest "
+        f"launches a step {want}, every one {variant}; every gradient leaf "
+        f"finite and non-zero in every layer ({len(norms)} leaves; smallest "
         f"{lo[0]} {lo[1].min().item():.3e}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; {smi}")
     return params, opt_state
@@ -3573,12 +3605,13 @@ def audio_batch(spec, step, B, S, device):
     return batch
 
 
-def check_resume_audio(spec, prefix):
-    """The reduced whisper on the card: 12 AdamW steps (batch 8 x 64)
-    uninterrupted, against 8 steps checkpointed every 4 by
-    ``CheckpointManager``, restored into fresh trees and run to 12: the
-    same parameters and optimizer state, bit for bit (the train CLI
-    refuses the audio family, as the JAX CLI does)."""
+def check_resume_manager(spec, prefix, make_batch):
+    """``spec`` reduced, on the card: 12 AdamW steps (batch 8 x 64, each
+    ``make_batch(small, step, 8, 64, "cuda")``) uninterrupted, against 8
+    steps checkpointed every 4 by ``CheckpointManager``, restored into
+    fresh trees and run to 12: the same parameters and optimizer state,
+    bit for bit (the train CLI refuses the audio and vlm families, as the
+    JAX CLI does)."""
     import tempfile
     from repro_torch import configs, tree as T
     from repro_torch.ckpt import CheckpointManager
@@ -3592,7 +3625,7 @@ def check_resume_audio(spec, prefix):
     def run(params, opt, lo, hi, mgr=None):
         for i in range(lo, hi):
             params, opt, _ = step(params, opt,
-                                  audio_batch(small, i, 8, 64, "cuda"))
+                                  make_batch(small, i, 8, 64, "cuda"))
             if mgr:
                 mgr.maybe_save(i + 1, {"params": params, "opt": opt})
         return params, opt
@@ -3617,7 +3650,7 @@ def check_resume_audio(spec, prefix):
                 y.reshape(-1).view(torch.uint8)))]
     if diff:
         raise AssertionError(f"{prefix} resume: trees differ at {diff}")
-    log(f"{prefix} whisper-medium resume at reduced size (8 x 64): 8 steps "
+    log(f"{prefix} {spec.name} resume at reduced size (8 x 64): 8 steps "
         f"checkpointed every 4, restored into fresh trees at step 8 and run "
         f"to 12: parameters and optimizer state equal to the uninterrupted "
         f"run's bit for bit")
@@ -3660,18 +3693,232 @@ def phase_train_audio(launches, smi):
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     del params, opt_state, batch
     torch.cuda.empty_cache()
-    check_resume_audio(spec, "[train-audio]")
+    check_resume_manager(spec, "[train-audio]", audio_batch)
     log(f"[train-audio] phase wall {time.perf_counter() - t_phase:.1f} s; "
         f"{smi}")
     return TRAIN_STEPS_NEW * want["flash_attention"], \
         TRAIN_STEPS_NEW * want["flash_attention_bwd"]
 
 
+# ------------------------------------------------------- phases 24-25
+#: paligemma-3b served: the image prefix of ``n_patches`` (256) and text
+#: behind it, 512 positions in all (a multiple of 256, so ``ops.tile_ok``
+#: gives the flash kernel); the shorter text of 200 makes 456 positions,
+#: which it refuses (the plain attention, no launch), as the JAX rule does
+VLM_TEXT = (256, 200)
+
+
+def vlm_prefill(params, spec, patches, text, max_seq):
+    """The image-and-text prefill: ``vlm.forward`` of ``patches`` and the
+    ``text`` tokens with the KV caches at cache index 0: (last-position
+    logits, state, ms)."""
+    from repro_torch.models import api, vlm
+    state = api.decode_state(spec, text.shape[0], max_seq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, kv = vlm.forward(params, spec.cfg, text, patches,
+                                 kv_caches=state["kv"], cache_index=0)
+    torch.cuda.synchronize()
+    return logits[:, -1].clone(), {"kv": kv}, (time.perf_counter() - t0) * 1e3
+
+
+def vlm_batch(spec, step, B, S, device):
+    """A training batch of the vlm family from numpy seed ``step``: tokens
+    and labels (B, S) in the LM's vocabulary, patches (B, n_patches,
+    d_vision) fp32."""
+    cfg = spec.cfg
+    rng = np.random.default_rng(step)
+    tokens, labels = (torch.as_tensor(rng.integers(0, cfg.lm.vocab, (B, S)),
+                                      device=device) for _ in range(2))
+    patches = rng.standard_normal((B, cfg.n_patches, cfg.d_vision),
+                                  dtype=np.float32)
+    return {"tokens": tokens, "labels": labels,
+            "patches": torch.from_numpy(patches).to(device)}
+
+
+def phase_serve_vlm(launches, smi):
+    """``[serve-vlm]``: paligemma-3b uncut (18 layers, d_model 2048, 8/1
+    heads of 256, vocabulary 257216; random bf16 weights from seed 0).
+    ``serve.main`` at batch 4, a 512-token prompt and 32 new tokens, text
+    only as the JAX CLI serves it: 18 flash launches a prefill, all
+    ``"simt"`` (dh 256).  Then patches (4, 256, 1152) fp32 from numpy seed
+    0 and 256 text tokens through ``vlm.forward`` with caches at index 0
+    (512 positions, 18 ``"simt"`` launches, each within ``LAYER_TOL`` of
+    its plain version), 32 decode steps from 512 (no launch), 200 text
+    tokens behind the same patches (456 positions: the plain attention, 0
+    launches), and the 512-position prefill against the plain attention
+    end to end (logits, KV caches) within ``LM_REL_TOL``; profiles and
+    peak memory.  Returns the flash launches a prefill."""
+    from repro_torch import configs, tree as T
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import api
+    t_phase = time.perf_counter()
+    B, G = 4, FAMILY_GEN
+    spec = configs.get("paligemma-3b")
+    cfg, lm = spec.cfg, spec.cfg.lm
+    P = cfg.n_patches + VLM_TEXT[0]
+    n_flash = flash_per_prefill(spec)
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    _build.VARIANTS.clear()
+    t0 = time.perf_counter()
+    gen = serve.main(["--arch", spec.name, "--batch", str(B), "--prompt-len",
+                      str(P), "--gen", str(G), "--seed", "0"])
+    wall = time.perf_counter() - t0
+    expect_launches(launches, n_flash, "serve paligemma-3b", "simt")
+    if gen.shape != (B, G) or gen.min() < 0 or gen.max() >= lm.vocab:
+        raise AssertionError(f"serve paligemma: tokens {gen.shape}")
+
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), spec)
+    n_params = sum(x.numel() for x in T.leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"paligemma: {n_params} parameters")
+    patches = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (B, cfg.n_patches, cfg.d_vision), dtype=np.float32)).cuda()
+    text = torch.as_tensor(np.random.default_rng(1).integers(
+        0, lm.vocab, (B, VLM_TEXT[0])), device="cuda")
+    errs = []
+    launches.clear()
+    _build.VARIANTS.clear()
+    with per_layer_check(errs):
+        vlm_prefill(params, spec, patches, text, P + G)
+    expect_launches(launches, n_flash, "paligemma checked prefill", "simt")
+    if len(errs) != n_flash:
+        raise AssertionError(f"paligemma: {len(errs)} flash calls checked")
+    launches.clear()
+    _build.VARIANTS.clear()
+    lk, sk, k_ms = vlm_prefill(params, spec, patches, text, P + G)
+    expect_launches(launches, n_flash, "paligemma prefill", "simt")
+    with plain_attention():
+        lp, sp, p_ms = vlm_prefill(params, spec, patches, text, P + G)
+    logit_rel, st_rel = rel_err(lk, lp), state_rel(sk, sp)
+    if not (logit_rel <= LM_REL_TOL and st_rel <= LM_REL_TOL):
+        raise AssertionError(f"paligemma prefill: logits relative "
+                             f"{logit_rel}, caches {st_rel}")
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    del lp, sp
+    launches.clear()
+    _build.VARIANTS.clear()
+    l200, _, s_ms = vlm_prefill(params, spec, patches, text[:, :VLM_TEXT[1]],
+                                cfg.n_patches + VLM_TEXT[1] + G)
+    expect_launches(launches, 0, "paligemma 456-position prefill")
+    if not torch.isfinite(l200).all():
+        raise AssertionError("paligemma 456-position prefill: non-finite")
+    pre = device_profile(lambda: vlm_prefill(params, spec, patches, text,
+                                             P + G))
+    step = build_serve_step(spec)
+    tok, state = lk.argmax(-1).to(torch.int32), sk
+    launches.clear()
+    _build.VARIANTS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(G):
+        tok, state = step(params, state, tok[:, None], P + i)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) / G * 1e3
+    expect_launches(launches, 0, "paligemma decode")
+    if not (0 <= tok.min() and tok.max() < lm.vocab):
+        raise AssertionError(f"paligemma decode: tokens {tok.tolist()}")
+
+    def three_steps():
+        t = tok
+        for i in range(3):
+            t, _ = step(params, state, t[:, None], P + G - 3 + i)
+
+    dec = device_profile(three_steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[serve-vlm] paligemma-3b ({lm.n_layers} layers, d_model "
+        f"{lm.d_model}, {lm.n_heads}/{lm.n_kv} heads of {lm.dh}, d_ff "
+        f"{lm.d_ff}, vocab {lm.vocab}, {cfg.n_patches} patches of "
+        f"{cfg.d_vision}; {n_params} parameters, uncut) B={B}: serve.main "
+        f"(text only, P={P}) {gen.shape} tokens in [0, {lm.vocab}), wall "
+        f"{wall:.1f} s, {n_flash} flash launches a prefill, all simt; "
+        f"patches ({B}, {cfg.n_patches}, {cfg.d_vision}) + {VLM_TEXT[0]} "
+        f"text tokens = {P} positions: {n_flash} launches, all simt, each "
+        f"within {LAYER_TOL} of the plain version (max {max(errs):.3e}); vs "
+        f"the plain attention end to end: logits relative {logit_rel:.3e}, "
+        f"KV caches relative <= {st_rel:.3e} (tol {LM_REL_TOL}), greedy "
+        f"agreement {agree:.2f}; {G} decode steps from {P}, 0 launches; "
+        f"{VLM_TEXT[1]} text tokens behind the patches "
+        f"({cfg.n_patches + VLM_TEXT[1]} positions, refused by tile_ok): 0 "
+        f"launches, {s_ms:.1f} ms; prefill {k_ms:.1f} ms ({p_ms:.1f} with "
+        f"the plain attention), decode {dec_ms:.2f} ms a step "
+        f"({B / dec_ms * 1e3:.1f} tok/s); peak memory {peak_gb:.1f} GB; "
+        f"{smi}")
+    log(f"[profile] paligemma-3b prefill (patches + text, {P} positions): "
+        f"device {pre[0]:.2f} ms, {pre[1]} launches, busy "
+        f"{pre[0] / k_ms:.2f} of the unprofiled {k_ms:.1f} ms; top: "
+        f"{pre[2]}")
+    log(f"[profile] paligemma-3b decode: device {dec[0] / 3:.2f} ms and "
+        f"{dec[1] / 3:.0f} launches a step, busy {dec[0] / 3 / dec_ms:.2f} "
+        f"of the unprofiled {dec_ms:.2f} ms; top over 3 steps: {dec[2]}")
+    del params, state, sk, lk, tok, patches, l200
+    torch.cuda.empty_cache()
+    log(f"[serve-vlm] phase wall {time.perf_counter() - t_phase:.1f} s; "
+        f"{smi}")
+    return n_flash
+
+
+def phase_train_vlm(launches, smi):
+    """``[train-vlm]``: paligemma-3b uncut, ``TRAIN_STEPS_NEW`` AdamW
+    steps of 8 x (256 patches + 256 text) through ``build_train_step``
+    under ``dots``: 36 flash forwards (18, and 18 again in the remat's
+    recompute) and 18 backwards a step, all ``"simt"`` (dh 256); every
+    gradient leaf non-zero, ``vision_proj``'s too; the step against the
+    plain attention, every flash call against its plain version; a
+    profiled step; a bit-exact resume through ``CheckpointManager`` at
+    reduced size.  Returns the flash forward and backward launches of the
+    steps."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, opt_init
+    t_phase = time.perf_counter()
+    spec = configs.get("paligemma-3b")
+    cfg = spec.cfg
+    S = TRAIN_S - cfg.n_patches
+    n = flash_per_prefill(spec)
+    want = {"flash_attention": 2 * n, "flash_attention_bwd": n}
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), spec)
+    opt_cfg = OptConfig()
+    step = build_train_step(spec, opt_cfg)
+    log(f"[train-vlm] paligemma-3b uncut ({cfg.param_count()} parameters), "
+        f"{TRAIN_STEPS_NEW} AdamW steps of {TRAIN_B} x ({cfg.n_patches} "
+        f"patches + {S} text tokens), patches ({TRAIN_B}, {cfg.n_patches}, "
+        f"{cfg.d_vision}) fp32, remat {cfg.lm.remat}")
+    params, opt_state = train_steps(
+        launches, spec, step, params, opt_init(params, opt_cfg),
+        [vlm_batch(spec, i, TRAIN_B, S, "cuda")
+         for i in range(TRAIN_STEPS_NEW)], want, "[train-vlm]", smi, "simt")
+    batch = vlm_batch(spec, TRAIN_STEPS_NEW, TRAIN_B, S, "cuda")
+    train_vs_plain(spec, params, batch, "[train-vlm]", 2 * n, n)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, _, _ = profile_train_step(spec, step, params, opt_state, batch,
+                                       smi)
+    log(f"[train-vlm] peak memory of the profiled steps "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
+        f"{TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} positions/s (patches and "
+        f"text) at the best wall")
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    check_resume_manager(spec, "[train-vlm]", vlm_batch)
+    log(f"[train-vlm] phase wall {time.perf_counter() - t_phase:.1f} s; "
+        f"{smi}")
+    return TRAIN_STEPS_NEW * want["flash_attention"], \
+        TRAIN_STEPS_NEW * want["flash_attention_bwd"]
+
+
 def time_family_shapes():
-    """The flash forward at dbrx's prefill call (GQA 6, dh 128, causal) and
-    whisper's encoder call (full 1500 x 1500, dh 64), and the backward at
-    ``BWD_SHAPES``' "dbrx GQA 6" and "whisper cross" cases, each beside
-    its plain version, the library call and the bound; and the backward of
+    """The flash forward at dbrx's prefill call (GQA 6, dh 128, causal),
+    whisper's encoder call (full 1500 x 1500, dh 64) and paligemma's
+    prefill call (8/1 heads of 256, causal: the SIMT variant), and the
+    backward at ``BWD_SHAPES``' "dbrx GQA 6", "whisper cross" and
+    "paligemma training" cases, each by the rule's variant beside its
+    plain version, the library call and the bound; and the backward of
     ``scaled_dot_product_attention`` at the "dh 256" case (the library
     time of the SIMT backward's row).  Returns {"forward": ...,
     "backward": ..., "library_bwd_dh256": ...}."""
@@ -3685,6 +3932,7 @@ def time_family_shapes():
         Sq, Sk = lengths(S)
         q = rand(g, (B, Sq, H, dh), torch.bfloat16)
         k, v = (rand(g, (B, Sk, KH, dh), torch.bfloat16) for _ in range(2))
+        var = fa.variant(q, k, v)
         ms = device_ms(lambda: fa.flash_attention_gqa(q, k, v,
                                                       causal=causal), 20)
         plain_ms = device_ms(lambda: mha_ref(q, k, v, causal=causal), 5)
@@ -3695,17 +3943,18 @@ def time_family_shapes():
         flops = 4 * dh * B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
         bound_ms, by, peak = bound(nbytes, flops, torch.bfloat16)
         log(f"[timing] flash_attention {tag} B={B} Sq={Sq} Sk={Sk} "
-            f"H={H}/{KH} dh={dh} bf16 causal={causal}: tc {ms:.4f} ms "
+            f"H={H}/{KH} dh={dh} bf16 causal={causal}: {var} {ms:.4f} ms "
             f"({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
             f"scaled_dot_product_attention {lib_ms:.4f} ms (ran {backend}; "
             + ", ".join(f"{n_} {t:.4f}" for n_, t in by_backend.items())
             + f"); bound {bound_ms:.5f} ms ({nbytes} B, {flops} FLOP, {by}; "
             f"peak {peak})")
-        out["forward"][tag] = dict(ms=ms, plain_ms=plain_ms,
+        out["forward"][tag] = dict(ms=ms, variant=var, plain_ms=plain_ms,
                                    library_ms=lib_ms, library_backend=backend,
                                    bound_ms=bound_ms, bound_by=by)
         del q, k, v
-    for tag in ("dbrx GQA 6", "whisper cross", "dh 256"):
+    for tag in ("dbrx GQA 6", "whisper cross", "paligemma training",
+                "dh 256"):
         _, B, S, H, KH, dh, dtype, causal = next(
             x for x in BWD_SHAPES if x[0] == tag)
         q, k, v, o, do, lse, var = bwd_case(g, B, S, H, KH, dh, dtype,
@@ -3795,6 +4044,8 @@ def main() -> int:
     moe_fwd, moe_bwd = phase_train_moe(_build.LAUNCHES, smi)
     audio_prefill_n, audio_enc = phase_serve_audio(_build.LAUNCHES, smi)
     audio_fwd, audio_bwd = phase_train_audio(_build.LAUNCHES, smi)
+    vlm_prefill_n = phase_serve_vlm(_build.LAUNCHES, smi)
+    vlm_fwd, vlm_bwd = phase_train_vlm(_build.LAUNCHES, smi)
     kernels.append(time_flash_bwd(train_bwd, bwd_err))
     shapes = time_family_shapes()
     kernels[2]["launches_by_path"] = {
@@ -3808,13 +4059,16 @@ def main() -> int:
         f"{TRAIN_MOE} training (phase 21)": moe_fwd,
         "whisper-medium prefill (phase 22)": audio_prefill_n,
         "whisper-medium encoder (phase 22)": audio_enc,
-        "whisper-medium training (phase 23)": audio_fwd}
+        "whisper-medium training (phase 23)": audio_fwd,
+        "paligemma-3b prefill (phase 24)": vlm_prefill_n,
+        "paligemma-3b training (phase 25)": vlm_fwd}
     kernels[2]["shapes"] = shapes["forward"]
     kernels[-1]["launches_by_path"] = {
         "qwen3-0.6b training (phase 17)": train_bwd,
         "zamba2-1.2b training (phase 19)": zamba_bwd,
         f"{TRAIN_MOE} training (phase 21)": moe_bwd,
-        "whisper-medium training (phase 23)": audio_bwd}
+        "whisper-medium training (phase 23)": audio_bwd,
+        "paligemma-3b training (phase 25)": vlm_bwd}
     kernels[-1]["shapes"] = shapes["backward"]
     kernels[-1]["simt_dh256"]["library_ms"] = \
         shapes["library_bwd_dh256"]["ms"]

@@ -2,13 +2,13 @@
 
 Each module exposes ``SPEC: ArchSpec``.  ``get(name)`` returns it;
 ``reduced(spec)`` builds the same-family small config for CPU tests.
-Ported so far: the dense decoders qwen3-0.6b, smollm-360m (the training
-CLI's default architecture), llama3.2-3b and yi-6b; the mixtures of
-experts dbrx-132b and kimi-k2 (moe); mamba2-130m (ssm); zamba2-1.2b
-(hybrid); whisper-medium (audio, an encoder-decoder); and flexgrip, the
-paper's overlay configuration (a ``MachineConfig``).  ``get`` of any
-other architecture of ``ARCH_IDS`` raises "not yet ported", and so does
-``reduced`` of the vlm family.
+Every architecture of ``ARCH_IDS`` is ported: the dense decoders
+qwen3-0.6b, smollm-360m (the training CLI's default architecture),
+llama3.2-3b and yi-6b; the mixtures of experts dbrx-132b and kimi-k2
+(moe); mamba2-130m (ssm); zamba2-1.2b (hybrid); whisper-medium (audio,
+an encoder-decoder); paligemma-3b (vlm, a decoder behind an image
+prefix); and flexgrip, the paper's overlay configuration (a
+``MachineConfig``).  ``get`` of any other name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -21,10 +21,8 @@ ARCH_IDS = (
     "llama3p2_3b", "yi_6b", "paligemma_3b", "kimi_k2", "dbrx_132b",
     "whisper_medium", "flexgrip",
 )
-#: the architectures whose modules the port has
-PORTED = ("qwen3_0p6b", "smollm_360m", "llama3p2_3b", "yi_6b",
-          "dbrx_132b", "kimi_k2", "mamba2_130m", "zamba2_1p2b",
-          "whisper_medium", "flexgrip")
+#: the architectures whose modules the port has: all of them
+PORTED = ARCH_IDS
 
 # assigned input shapes (LM family): name -> (seq_len, global_batch, kind)
 SHAPES: Dict[str, Tuple[int, int, str]] = {
@@ -54,10 +52,6 @@ _cache: Dict[str, ArchSpec] = {}
 def get(name: str) -> ArchSpec:
     key = name.replace("-", "_").replace(".", "p")
     if key not in PORTED:
-        if key in ARCH_IDS:
-            raise NotImplementedError(
-                f"architecture {name!r} is not yet ported to repro_torch "
-                f"(ported: {', '.join(PORTED)})")
         raise KeyError(f"unknown architecture {name!r}")
     if key not in _cache:
         mod = importlib.import_module(f"repro_torch.configs.{key}")
@@ -73,13 +67,14 @@ SKIP_QUADRATIC = ("pure full-attention arch: a 524k dense-attention decode "
 
 
 def reduced(spec: ArchSpec) -> ArchSpec:
-    """Same-family tiny config for CPU tests (every family but vlm, which
-    is not yet ported)."""
+    """Same-family tiny config for CPU tests; a spec of a family without
+    one (the overlay's ``flexgrip``) is returned unchanged."""
     from repro_torch.models.encdec import EncDecConfig
     from repro_torch.models.hybrid import HybridConfig
     from repro_torch.models.mamba2 import Mamba2Config
     from repro_torch.models.moe import MoEConfig
     from repro_torch.models.transformer import LMConfig
+    from repro_torch.models.vlm import VLMConfig
 
     c = spec.cfg
     if spec.family in ("dense", "moe"):
@@ -105,7 +100,11 @@ def reduced(spec: ArchSpec) -> ArchSpec:
         small = EncDecConfig(name=c.name + "-smoke", n_layers=2,
                              d_model=64, n_heads=4, n_kv=4, d_ff=128,
                              vocab=256, enc_len=32)
+    elif spec.family == "vlm":
+        lm = LMConfig(name=c.name + "-smoke-lm", n_layers=2, d_model=64,
+                      n_heads=4, n_kv=1, d_ff=128, vocab=256, head_dim=16)
+        small = VLMConfig(name=c.name + "-smoke", lm=lm, n_patches=8,
+                          d_vision=48)
     else:
-        raise NotImplementedError(
-            f"reduced() of the {spec.family!r} family is not yet ported")
+        return spec
     return dataclasses.replace(spec, cfg=small)

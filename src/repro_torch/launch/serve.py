@@ -7,8 +7,9 @@
 The prompt is prefilled in one ``serve_step`` of (B, P) tokens at cache
 index 0, the step the JAX package lowers for its prefill cells; on the
 card its attention is the flash kernel.  Decode is then one token at a
-time.  Runs on the card unless ``--device cpu``; weights are random, made
-from ``--seed``.
+time.  The vlm family is served text only, without image patches, as the
+JAX CLI serves it.  Runs on the card unless ``--device cpu``; weights are
+random, made from ``--seed``.
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ def main(argv=None):
     state = api.decode_state(spec, args.batch, max_seq, device=dev)
     step = build_serve_step(spec)
     rng = np.random.default_rng(args.seed)
-    prompt = rng.integers(0, spec.cfg.vocab, (args.batch, args.prompt_len))
+    vocab = spec.cfg.lm.vocab if spec.family == "vlm" else spec.cfg.vocab
+    prompt = rng.integers(0, vocab, (args.batch, args.prompt_len))
     prompt = torch.as_tensor(prompt, device=dev)
 
     # prefill: one step of (B, P) tokens at cache index 0

@@ -2,11 +2,11 @@
 
 ``init``, ``param_shapes``, ``apply_train``, ``decode_state`` and
 ``apply_decode`` for the dense and moe (``transformer``), ssm (mamba2),
-hybrid (zamba2) and audio (``encdec``, whisper) families; the JAX
-package's vlm family raises "not yet ported".  Decode state is the
-stacked KV caches (dense, moe, hybrid, audio), SSD + conv states (ssm,
-hybrid), written in place by each step, and the audio family's cross
-K/V, which a step returns unchanged.
+hybrid (zamba2), audio (``encdec``, whisper) and vlm (``vlm``,
+paligemma) families; an unknown family raises ``ValueError``, as in the
+JAX package.  Decode state is the stacked KV caches (dense, moe, vlm,
+hybrid, audio), SSD + conv states (ssm, hybrid), written in place by each
+step, and the audio family's cross K/V, which a step returns unchanged.
 """
 from __future__ import annotations
 
@@ -16,18 +16,16 @@ import torch
 
 from ..configs import ArchSpec
 from ..core.pipeline.state import resolve_device
-from . import encdec, hybrid, layers as L, mamba2, transformer
+from . import encdec, hybrid, layers as L, mamba2, transformer, vlm
 
 #: the model module of each ported family
 _MODELS = {"dense": transformer, "moe": transformer, "ssm": mamba2,
-           "hybrid": hybrid, "audio": encdec}
+           "hybrid": hybrid, "audio": encdec, "vlm": vlm}
 
 
 def _model(spec: ArchSpec):
     if spec.family not in _MODELS:
-        raise NotImplementedError(
-            f"the {spec.family!r} family ({spec.name}) is not yet ported to "
-            "repro_torch")
+        raise ValueError(spec.family)
     return _MODELS[spec.family]
 
 
@@ -44,13 +42,19 @@ def param_shapes(spec: ArchSpec):
 
 def apply_train(params, spec: ArchSpec, batch) -> torch.Tensor:
     """The token-mean loss of one batch ({"tokens", "labels"}, each (B, S)
-    integer; the audio family also ``"frames"``, (B, enc_len, D)).  The
-    ssm, hybrid and audio families take the full logits and
-    ``softmax_xent``, as the JAX package does."""
+    integer; the audio family also ``"frames"``, (B, enc_len, D), and the
+    vlm family ``"patches"``, (B, n_patches, d_vision), whose positions
+    the loss drops).  The ssm, hybrid and audio families take the full
+    logits and ``softmax_xent``, as the JAX package does."""
     model = _model(spec)
     tokens, labels = batch["tokens"], batch["labels"]
     if spec.family in ("dense", "moe"):
         return transformer.loss(params, spec.cfg, tokens, labels)
+    if spec.family == "vlm":
+        return transformer.loss(
+            params, spec.cfg.lm, tokens, labels,
+            prefix_embed=vlm.project(params, batch["patches"]),
+            prefix_drop=spec.cfg.n_patches)
     if spec.family == "audio":
         logits = encdec.forward(params, spec.cfg, batch["frames"], tokens)
     else:
@@ -65,9 +69,12 @@ def decode_state(spec: ArchSpec, batch: int, max_seq: int, *,
     hybrid {"ssm": ..., "kv": (k, v)} with the KV caches (n_apps, B,
     max_seq, K, dh); audio {"kv": ..., "cross": (k, v)} with the cross K/V
     each (L, B, enc_len, K, dh), zeroed too (serving decodes against it as
-    the JAX CLI does; ``encdec.cross_kv`` gives the real one)."""
+    the JAX CLI does; ``encdec.cross_kv`` gives the real one); vlm as
+    dense, sized by its LM (``cfg.lm``)."""
     _model(spec)
     cfg, device = spec.cfg, resolve_device(device)
+    if spec.family == "vlm":
+        cfg = cfg.lm
     if spec.family == "ssm":
         return {"ssm": mamba2.init_decode_state(cfg, batch, device=device)}
     if spec.family == "hybrid":
@@ -89,7 +96,8 @@ def apply_decode(params, spec: ArchSpec, tokens, state,
                  cache_index: Optional[int]):
     """One serving step: tokens (B, S) -> (logits (B, S, V), new state).
     S = 1 decodes; S > 1 at ``cache_index`` 0 is the prefill.  The ssm
-    family ignores ``cache_index``, as in the JAX package."""
+    family ignores ``cache_index``, as in the JAX package; the vlm family
+    serves text alone (no patches), as the JAX package's step does."""
     _model(spec)
     if spec.family == "ssm":
         logits, st = mamba2.forward(params, spec.cfg, tokens,
@@ -105,6 +113,11 @@ def apply_decode(params, spec: ArchSpec, tokens, state,
             params, spec.cfg, tokens, cross=state["cross"],
             kv_caches=state["kv"], cache_index=cache_index)
         return logits, {"kv": kv, "cross": state["cross"]}
+    if spec.family == "vlm":
+        logits, kv = vlm.forward(params, spec.cfg, tokens, None,
+                                 kv_caches=state["kv"],
+                                 cache_index=cache_index)
+        return logits, {"kv": kv}
     logits, kv = transformer.forward(
         params, spec.cfg, tokens, kv_caches=state["kv"],
         cache_index=cache_index)

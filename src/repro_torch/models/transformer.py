@@ -128,15 +128,25 @@ def _block(cfg: LMConfig, lp, x, positions, kv_cache=None, cache_index=None):
     return x, new_cache
 
 
+def _embed(params, tokens, prefix_embed):
+    """The token embeddings, ``prefix_embed`` (B, P, D) cast to their
+    dtype and concatenated in front when given."""
+    x = L.embed_apply(params["embed"], tokens)
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
+    return x
+
+
 def forward(params, cfg: LMConfig, tokens, *, kv_caches=None,
-            cache_index: Optional[int] = None):
-    """tokens: (B, S) int -> logits (B, S, V) fp32.
+            cache_index: Optional[int] = None, prefix_embed=None):
+    """tokens: (B, S) int -> logits (B, P + S, V) fp32.
 
     ``kv_caches``: stacked (k, v) each (L, B, T, K, dh), written in place
-    and returned with the logits.  (The JAX function's ``prefix_embed``
-    serves the VLM family, not ported yet.)
+    and returned with the logits.  ``prefix_embed``: optional (B, P, D)
+    embeddings prepended to the token embeddings (the VLM's image
+    patches); positions run over the whole P + S from ``cache_index``.
     """
-    x = L.embed_apply(params["embed"], tokens)
+    x = _embed(params, tokens, prefix_embed)
     B, S, D = x.shape
     start = 0 if cache_index is None else int(cache_index)
     positions = (start + torch.arange(S, dtype=torch.int32,
@@ -153,10 +163,10 @@ def forward(params, cfg: LMConfig, tokens, *, kv_caches=None,
 
 
 # ------------------------------------------------------------------ training
-def _trunk(params, cfg: LMConfig, tokens):
-    """Embedding, the layers under the remat policy, the final norm:
-    (B, S, D)."""
-    x = L.embed_apply(params["embed"], tokens)
+def _trunk(params, cfg: LMConfig, tokens, prefix_embed=None):
+    """Embedding (``prefix_embed`` in front, as in :func:`forward`), the
+    layers under the remat policy, the final norm: (B, P + S, D)."""
+    x = _embed(params, tokens, prefix_embed)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
@@ -170,12 +180,15 @@ def _trunk(params, cfg: LMConfig, tokens):
     return L.rmsnorm(params["final_norm"], x)
 
 
-def loss(params, cfg: LMConfig, tokens, labels):
+def loss(params, cfg: LMConfig, tokens, labels, *, prefix_embed=None,
+         prefix_drop: int = 0):
     """Training loss, the token mean (labels < 0 are padding); the chunked
-    big-vocabulary cross-entropy when ``cfg.loss_chunk > 0``.  (The JAX
-    function's ``prefix_embed`` / ``prefix_drop`` serve the VLM family,
-    not ported yet.)"""
-    x = _trunk(params, cfg, tokens)
+    big-vocabulary cross-entropy when ``cfg.loss_chunk > 0``.  The first
+    ``prefix_drop`` positions (the VLM's image prefix, ``prefix_embed``)
+    are dropped before the unembedding: the JAX function unembeds them
+    too when ``loss_chunk == 0`` and slices the logits, the same logits
+    kept, since the unembedding is per row."""
+    x = _trunk(params, cfg, tokens, prefix_embed)[:, prefix_drop:]
     head = params.get("lm_head", params["embed"])
     if cfg.loss_chunk <= 0:
         return L.softmax_xent(L.unembed_apply(head, x), labels)

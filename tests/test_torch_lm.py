@@ -68,17 +68,21 @@ def test_dense_configs_match_jax():
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tconfigs.get("paligemma-3b")
+    """Every family is ported; what still raises: an unknown architecture
+    (``KeyError``) and an unknown family in ``api`` (``ValueError``, as
+    the JAX ``api``); ``reduced`` of the overlay's ``flexgrip``, a family
+    without a small config, returns the spec unchanged, as the JAX one."""
     with pytest.raises(KeyError):
         tconfigs.get("no-such-arch")
-    vlm = tconfigs.ArchSpec(name="x", family="vlm", cfg=None)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tconfigs.reduced(vlm)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tapi.decode_state(vlm, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tapi.init(torch.Generator(), vlm)
+    flexgrip = tconfigs.get("flexgrip")
+    assert tconfigs.reduced(flexgrip) is flexgrip
+    unknown = tconfigs.ArchSpec(name="x", family="nosuch", cfg=None)
+    with pytest.raises(ValueError, match="nosuch"):
+        tapi.init(torch.Generator(), unknown)
+    with pytest.raises(ValueError, match="nosuch"):
+        tapi.decode_state(unknown, 1, 4, device="cpu")
+    with pytest.raises(ValueError, match="nosuch"):
+        tapi.apply_decode(None, unknown, None, None, 0)
 
 
 def test_converted_params_keep_the_tree(model):
