@@ -48,14 +48,15 @@ Phases, each printed as it ends:
    the number of a block's steps that took its read/write barrier;
 8. ``flash_attention`` and ``matmul`` against their plain versions on the
    card: the sweep of ``tests/test_kernels.py`` plus a ragged length
-   (S=200), large logits, and the model's strided GQA call, each bf16 case
-   through both variants (the rule's tensor-core one and the SIMT one,
-   forced by ``variant="simt"``), and a misaligned q that the rule must
-   send to the SIMT variant; the moe, audio and vlm families' calls
+   (S=200) and dh 256, large logits, and the model's strided GQA call at
+   dh 128 and its MQA call at dh 256, each bf16 case through both
+   variants (the rule's tensor-core one and the SIMT one, forced by
+   ``variant="simt"``), and a misaligned q that the rule must send to the
+   SIMT variant; the moe, audio and vlm families' calls
    (``FAMILY_FWD_SHAPES``: dbrx's GQA ratio 6 at dh 128, whisper's
-   cross-attention 512 x 1500 and encoder 1500 x 1500 at dh 64, full, by
-   both variants; paligemma's 8/1 heads of 256 by the rule's SIMT one),
-   two calls bit-equal; matmul at the sweep's shapes, a ragged
+   cross-attention 512 x 1500 and encoder 1500 x 1500 at dh 64, full, and
+   paligemma's 8/1 heads of 256, each by both variants), two calls
+   bit-equal; matmul at the sweep's shapes, a ragged
    200x200x200 and a scalar-load shape, in both dtypes, and at
    ``kernel_micro``'s 512x512 float32 with 128 tiles, through
    ``ops.matmul`` (that call is the matmul kernel's path);
@@ -133,13 +134,13 @@ Phases, each printed as it ends:
    from cleared caches (misses in the 64- and the 96-instruction code
    buckets) and of the same drain again (no miss);
 17. training (``[train]``): the flash backward kernels against their
-   plain version (``mha_bwd_ref``) at ten shapes (qwen3's training
+   plain version (``mha_bwd_ref``) at thirteen shapes (qwen3's training
    shape, smollm's 15/5 heads of 64, float32 dh 16, a ragged S=200, full
    attention, dh 256 in bf16 and in float32, whisper's cross-attention
    512 x 1500 full, dbrx's GQA ratio 6, paligemma's training shape, 8/1
-   heads of 256), each by the rule's
-   variant (``"tc"`` for the four bf16 shapes at dh 64 and 128,
-   ``"simt"`` for float32 and dh 256) and the ``"tc"`` ones by the forced
+   heads of 256, and at dh 256 a ragged S=200 with one KV head, a full
+   200 x 232 and 16/16 heads), each by the rule's variant (``"tc"`` for
+   bf16, ``"simt"`` for float32) and the ``"tc"`` ones by the forced
    ``"simt"`` too, two calls bit-equal; ``repro_torch.launch.train.main``
    trains qwen3-0.6b at full width (28 layers, 596,042,752 random bf16
    parameters from seed 0) for 6 steps of 8 x 512 tokens, every loss and
@@ -152,8 +153,8 @@ Phases, each printed as it ends:
    full-width step under ``torch.profiler`` (device ms, launches, busy
    share, tokens/s, top operations), and the backward kernels' time at
    the training shape, ``"tc"`` and ``"simt"`` in turns, beside the plain
-   version and the backward of ``scaled_dot_product_attention``, and the
-   SIMT kernels' time at dh 256;
+   version and the backward of ``scaled_dot_product_attention``, and both
+   variants' time at dh 256;
 18. the other families serving (``[serve-families]``): ``serve.main`` at
    full width, batch 4, a 512-token prompt and 32 new tokens, random bf16
    weights from seed 0, for llama3.2-3b, yi-6b, mamba2-130m and
@@ -216,21 +217,21 @@ Phases, each printed as it ends:
    layers, d_model 2048, 8/1 heads of 256, vocabulary 257216) through
    ``serve.main`` (batch 4, a 512-token text prompt, 32 new tokens, no
    patches, as the JAX CLI serves it): 18 flash launches a prefill, all
-   ``"simt"`` (dh 256); then image patches (4, 256, 1152) from numpy seed
+   ``"tc"`` (dh 256); then image patches (4, 256, 1152) from numpy seed
    0 and 256 text tokens through ``vlm.forward`` with caches (18
-   ``"simt"`` launches, each within ``LAYER_TOL`` of its plain version),
+   ``"tc"`` launches, each within ``LAYER_TOL`` of its plain version),
    32 decode steps, 200 text tokens behind the patches (456 positions:
    the plain attention by ``tile_ok``, 0 launches), the 512-position
    prefill against the plain attention end to end within ``LM_REL_TOL``;
    profiles and peak memory;
 25. the vlm family training (``[train-vlm]``): paligemma-3b uncut, 3 AdamW
    steps of 8 x (256 patches + 256 text) through ``build_train_step``: 36
-   flash forwards and 18 backwards a step, all ``"simt"``; the checks of
+   flash forwards and 18 backwards a step, all ``"tc"``; the checks of
    phase 23 (``vision_proj``'s gradient non-zero too); then the flash
-   forward and backward timed at the families' shapes (paligemma's SIMT
-   ones among them) beside their plain versions, the library calls and
-   their bounds, and the backward of ``scaled_dot_product_attention`` at
-   dh 256.
+   forward and backward timed at the families' shapes (at paligemma's,
+   the rule's ``"tc"`` kernels and the forced SIMT ones) beside their
+   plain versions, the library calls and their bounds, and the backward
+   of ``scaled_dot_product_attention`` at dh 256.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are on the card named in the
@@ -363,6 +364,56 @@ def l2_cold_ms(fn, reps: int) -> float:
 def timed(fn, reps: int):
     """(device ms, CUDA-event ms) of one ``fn()``."""
     return device_ms(fn, reps), event_ms(fn, reps)
+
+
+def mangled_ids(name: str):
+    """The length-prefixed identifiers of a mangled name up to the first
+    that ends in ``_kernel``."""
+    ids, i = [], 0
+    while i < len(name):
+        m = re.match(r"\d+", name[i:])
+        if not m:
+            i += 1
+            continue
+        start = i + len(m.group())
+        ids.append(name[start:start + int(m.group())])
+        if ids[-1].endswith("_kernel"):
+            break
+        i = start + int(m.group())
+    return ids
+
+
+def ptxas_kernels(report: str):
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    entry function in an ``nvcc -Xptxas -v`` report, the kernel named
+    from its mangled name as ``[tc::]name<template ints>[ bf16|f32]``."""
+    out, name, spill = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            ids = mangled_ids(name)
+            kern = ids[-1] if ids[-1:] and ids[-1].endswith("_kernel") \
+                else name
+            label = ("tc::" if "tc" in ids else "") + kern
+            ints = re.findall(r"Li(\d+)E", name)
+            if ints:
+                label += "<" + ",".join(ints) + ">"
+            if "I13__nv_bfloat16" in name:
+                label += " bf16"
+            elif re.search(r"IfL", name):
+                label += " f32"
+            out.append((label, int(m.group(1))) + spill)
+            name = None
+    return out
 
 
 # ------------------------------------------------------------ phase 3
@@ -888,7 +939,7 @@ def flash_case(fn, want_fn, args, causal, tol, tag, want_variant,
 #: KH, dh, causal), S one length or (Sq, Sk): dbrx's prefill (GQA ratio
 #: 6), whisper's cross-attention (512 queries on 1500 frames) and encoder
 #: (1500 x 1500), full and with ragged last tiles, and paligemma's prefill
-#: (one KV head of 256: the SIMT variant by the rule)
+#: (one KV head of 256); the rule gives each the tensor-core variant
 FAMILY_FWD_SHAPES = [("dbrx GQA 6", 4, 512, 48, 8, 128, True),
                      ("whisper cross", 8, (512, 1500), 16, 16, 64, False),
                      ("whisper encoder", 4, 1500, 16, 16, 64, False),
@@ -896,11 +947,11 @@ FAMILY_FWD_SHAPES = [("dbrx GQA 6", 4, 512, 48, 8, 128, True),
 
 
 def phase_flash_vs_plain():
-    """The sweep through both variants: every bf16 case at dh 64/128 by
-    the rule's tensor-core variant and by the SIMT one; float32 and the
-    misaligned case by the SIMT one, which the rule must choose; the
-    families' shapes (``FAMILY_FWD_SHAPES``) by both at dh 64/128, by the
-    rule's SIMT one at dh 256."""
+    """The sweep through both variants: every bf16 case at dh 64, 128 and
+    256 by the rule's tensor-core variant and by the SIMT one; float32 and
+    the misaligned case by the SIMT one, which the rule must choose; the
+    GQA cache prefix at dh 128 and 256 and the families' shapes
+    (``FAMILY_FWD_SHAPES``) by both."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (TC_HEAD_DIMS,
                                                      flash_attention,
@@ -909,7 +960,8 @@ def phase_flash_vs_plain():
     g = torch.Generator(device="cuda").manual_seed(5)
     cases = [(256, 256, 64, True), (256, 256, 128, True),
              (128, 512, 64, False), (512, 512, 64, True),
-             (200, 200, 128, True), (200, 200, 64, False)]
+             (200, 200, 128, True), (200, 200, 64, False),
+             (200, 200, 256, True), (200, 200, 256, False)]
     errs = {"tc": 0.0, "simt f32": 0.0, "simt bf16": 0.0}
     n = 0
     for Sq, Sk, dh, causal in cases:
@@ -942,6 +994,14 @@ def phase_flash_vs_plain():
         max_err = max(max_err, flash_case(
             flash_attention_gqa, mha_ref, args, True, 3e-2,
             f"flash GQA cache prefix {want}", want, forced))
+    # the same at dh 256 with one KV head and a ragged S of 200 (paligemma)
+    q = rand(g, (4, 200, 8, 256), torch.bfloat16)
+    ck, cv = (rand(g, (4, 232, 1, 256), torch.bfloat16) for _ in range(2))
+    args = (q, ck[:, :200], cv[:, :200])
+    for want, forced in (("tc", None), ("simt", "simt")):
+        max_err = max(max_err, flash_case(
+            flash_attention_gqa, mha_ref, args, True, 3e-2,
+            f"flash MQA dh 256 cache prefix S=200 {want}", want, forced))
     # a q one element past a 16-byte boundary: the rule must take SIMT
     buf = rand(g, (4 * 256 * 8 * 64 + 1,), torch.bfloat16)
     qm = buf[1:].view(4, 256, 8, 64)
@@ -949,17 +1009,17 @@ def phase_flash_vs_plain():
     max_err = max(max_err, flash_case(
         flash_attention_gqa, mha_ref, (qm, km, vm), True, 3e-2,
         "flash misaligned q", "simt"))
-    # the moe, audio and vlm families' calls, two calls bit-equal: at dh
-    # 64/128 by both variants, at dh 256 by the rule's SIMT one, unforced
+    # the moe, audio and vlm families' calls, two calls bit-equal, each by
+    # the rule's tensor-core variant and by the forced SIMT one
     fam = []
     for tag, B, S, H, KH, dh, causal in FAMILY_FWD_SHAPES:
         Sq, Sk = lengths(S)
         q = rand(g, (B, Sq, H, dh), torch.bfloat16)
         k, v = (rand(g, (B, Sk, KH, dh), torch.bfloat16) for _ in range(2))
         want_out = mha_ref(q, k, v, causal=causal)
-        runs = (("tc", None), ("simt", "simt")) if dh in TC_HEAD_DIMS \
-            else (("simt", None),)
-        for want, forced in runs:
+        if dh not in TC_HEAD_DIMS:
+            raise AssertionError(f"flash {tag}: dh {dh} has no tc kernel")
+        for want, forced in (("tc", None), ("simt", "simt")):
             _build.VARIANTS.clear()
             got = flash_attention_gqa(q, k, v, causal=causal, variant=forced)
             again = flash_attention_gqa(q, k, v, causal=causal,
@@ -973,15 +1033,17 @@ def phase_flash_vs_plain():
             max_err = max(max_err, err)
             fam.append(f"{tag} {want} {err:.3e}")
         del q, k, v, want_out, got, again
-    log(f"[flash_attention] vs flash_attention_ref: {n + 4} cases (the "
-        f"test_kernels sweep, S=200, each bf16 case by both variants; "
-        f"large logits; GQA cache prefix by both; misaligned q by SIMT) "
+    log(f"[flash_attention] vs flash_attention_ref: {n + 6} cases (the "
+        f"test_kernels sweep, S=200, dh 64-256, each bf16 case by both "
+        f"variants; large logits; GQA cache prefix at dh 128 and MQA at dh "
+        f"256 by both; misaligned q by SIMT) "
         f"within tolerance (f32 2e-3, bf16 3e-2, large 1e-2); every launch "
         f"took the variant the rule or the caller named; max_abs_err "
         f"{max_err:.3e} (sweep tc {errs['tc']:.3e}, simt f32 "
         f"{errs['simt f32']:.3e}, simt bf16 {errs['simt bf16']:.3e}); the "
         f"families' shapes against mha_ref within 3e-2, two calls "
-        f"bit-equal, dh 256 by the rule's simt: " + ", ".join(fam))
+        f"bit-equal, by the rule's tc and the forced simt: "
+        + ", ".join(fam))
     return max_err
 
 
@@ -2140,6 +2202,12 @@ BWD_SHAPES = [("qwen3 training", 8, 512, 16, 8, 128, torch.bfloat16, True),
                False),
               ("dbrx GQA 6", 4, 512, 48, 8, 128, torch.bfloat16, True),
               ("paligemma training", 8, 512, 8, 1, 256, torch.bfloat16,
+               True),
+              ("dh 256 MQA ragged S=200", 2, 200, 8, 1, 256,
+               torch.bfloat16, True),
+              ("dh 256 full 200 x 232", 2, (200, 232), 8, 2, 256,
+               torch.bfloat16, False),
+              ("dh 256 16/16 heads", 2, 512, 16, 16, 256, torch.bfloat16,
                True)]
 #: the full-width step with the flash kernel against the same step with
 #: the plain attention: the loss within 1e-2 relative and each gradient
@@ -2170,11 +2238,15 @@ def bwd_case(g, B, S, H, KH, dh, dtype, causal):
 
 def phase_flash_bwd_vs_plain():
     """The backward kernels at every ``BWD_SHAPES`` case against
-    ``mha_bwd_ref``,
-    by the rule's variant (the tensor-core one for bf16 at dh 64 and 128,
-    the SIMT one for float32 dh 16) and, where the rule picks ``"tc"``,
-    by the forced SIMT one too; two calls give equal bits and each launch
-    took the variant named.  Returns the largest absolute error."""
+    ``mha_bwd_ref``, by the rule's variant (the tensor-core one for bf16
+    at dh 64, 128 and 256, the SIMT one for float32) and, where the rule
+    picks ``"tc"``, by the forced SIMT one too; two calls give equal bits
+    and each launch took the variant named.  At dh 256 the cases cover
+    ``bwd_split``'s partials (4 splits at paligemma's shape and the full
+    200 x 232 case, 2 at "dh 256", 8 at the ragged MQA one), the direct
+    bf16 stores of one split (16/16 heads: 256 CTAs without a split) and
+    ragged tails.
+    Returns the largest absolute error."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import mha_bwd_ref, mha_lse_ref
@@ -2628,7 +2700,7 @@ def time_flash_bwd(launches_on_path, max_err):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                 library_ms=lib_ms, library_backend=lib_name,
                 variant_ms={"tc": ms, "simt": simt_ms}, bound_share=share,
-                simt_dh256=dh256)
+                tc_dh256=dh256["tc"], simt_dh256=dh256["simt"])
 
 
 def sdpa_bwd_by_backend(q, k, v, do, causal):
@@ -2676,24 +2748,81 @@ def bwd_work(B, S, H, KH, dh, dtype, causal):
 
 
 def time_flash_bwd_dh256():
-    """The SIMT backward at ``BWD_SHAPES``' bf16 dh-256 shape (its 32-row
-    tiles), beside the plain version and the bound."""
+    """The backward at ``BWD_SHAPES``' bf16 dh-256 shape by the rule's
+    tensor-core kernels and the forced SIMT ones (32-row tiles), in turns
+    (``in_turns``), beside the plain version and the bound: {"tc": ...,
+    "simt": ...}."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import mha_bwd_ref
     _, B, S, H, KH, dh, dtype, causal = next(
         x for x in BWD_SHAPES if x[0] == "dh 256")
     g = torch.Generator(device="cuda").manual_seed(19)
     q, k, v, o, do, lse, var = bwd_case(g, B, S, H, KH, dh, dtype, causal)
-    ms = device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse), 10)
-    plain_ms = device_ms(lambda: mha_bwd_ref(q, k, v, o, do, lse), 5)
+    if var != "tc":
+        raise AssertionError(f"time_flash_bwd_dh256: the rule gave {var}")
+    _, turns = in_turns(lambda forced: fa.flash_attention_bwd(
+        q, k, v, o, do, lse, causal=causal, variant=forced), dh, 10)
+    reads = turns["readings"]
+    plain_ms = device_ms(lambda: mha_bwd_ref(q, k, v, o, do, lse,
+                                             causal=causal), 5)
     nbytes, flops = bwd_work(B, S, H, KH, dh, dtype, causal)
     bound_ms, by, peak = bound(nbytes, flops, dtype)
+    out = {name: dict(shape=[B, S, H, KH, dh], variant=name, ms=ms,
+                      readings=reads[name], plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=by)
+           for name, ms in turns["variant_ms"].items()}
     log(f"[timing] flash_attention_bwd B={B} S={S} H={H}/{KH} dh={dh} bf16 "
-        f"causal, the rule's {var} (32-row tiles): device {ms:.4f} ms "
-        f"({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms; bound "
-        f"{bound_ms:.5f} ms ({nbytes} B, {flops} FLOP, {by}; peak {peak})")
-    return dict(shape=[B, S, H, KH, dh], variant=var, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+        f"causal, device in turns (tc, simt, simt, tc): tc "
+        + ", ".join(f"{t:.4f}" for t in reads["tc"]) + " ms ("
+        f"{bound_ms / out['tc']['ms']:.1%} of the bound), simt (32-row "
+        f"tiles) " + ", ".join(f"{t:.4f}" for t in reads["simt"])
+        + f" ms ({bound_ms / out['simt']['ms']:.1%}; "
+        f"{out['simt']['ms'] / out['tc']['ms']:.1f}x tc), plain "
+        f"{plain_ms:.4f} ms; bound {bound_ms:.5f} ms ({nbytes} B, {flops} "
+        f"FLOP, {by}; peak {peak})")
+    return out
+
+
+def bwd_by_split(q, k, v, o, do, lse, causal):
+    """The tensor-core backward at dh 256 by each split of the GQA
+    group's query heads (the divisors of H // KH), in turns (the list,
+    then reversed; the lower reading of each), and each of its kernels'
+    device ms a call at ``bwd_split``'s choice, from ``torch.profiler``:
+    {"rule": ..., "ms_by_split": ..., "readings": ..., "kernel_ms": ...}."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, dh = q.shape
+    KH = k.shape[2]
+    rep = H // KH
+    splits = [d for d in range(1, rep + 1) if rep % d == 0]
+    reads = {d: [] for d in splits}
+    for d in splits + splits[::-1]:
+        reads[d].append(device_ms(lambda: fa._launch_bwd(
+            q, k, v, o, do, lse, causal, None, split=d), 10))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+        torch.cuda.synchronize()
+    # the mean over the launches the trace kept: a trace taken after
+    # others in one process may drop some of them
+    kernel_ms, kernel_n = {}, {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            m = re.search(r"\w+_kernel", e.key)
+            name = m.group(0) if m else e.key
+            kernel_ms[name] = e.self_device_time_total / e.count / 1e3
+            kernel_n[name] = e.count
+    rule = fa.bwd_split(B, H, KH, k.shape[1], dh, fa._n_sm(q.get_device()))
+    out = dict(rule=rule, ms_by_split={d: min(r) for d, r in reads.items()},
+               readings=reads, kernel_ms=kernel_ms, kernel_traced=kernel_n)
+    log(f"[timing] flash_attention_bwd by split (B={B} S={S} H={H}/{KH} "
+        f"dh={dh}; the rule's {rule}; in turns): " + ", ".join(
+            f"{d}: {min(r):.4f} ms" for d, r in reads.items())
+        + f"; kernels at split {rule} (mean of the launches traced, of "
+        f"10): " + ", ".join(f"{n} {t:.4f} ms ({kernel_n[n]})"
+                            for n, t in kernel_ms.items())
+        + f", {sum(kernel_ms.values()):.4f} ms in all")
+    return out
 
 
 # ------------------------------------------------------- phases 18-19
@@ -2750,16 +2879,15 @@ def state_rel(a, b):
                for i in range(x.shape[0]) if y[i].float().norm() > 0)
 
 
-def expect_launches(launches, n, tag, variant="tc"):
+def expect_launches(launches, n, tag):
     """Raises unless ``launches`` holds exactly ``n`` flash launches (none
-    of any other kernel), every one ``variant`` (the tensor-core one
-    unless named)."""
+    of any other kernel), every one the tensor-core variant."""
     want = {"flash_attention": n} if n else {}
     if dict(launches) != want:
         raise AssertionError(f"{tag}: launches {dict(launches)}, want {want}")
-    if variant_counts() != ({("flash_attention", variant): n} if n else {}):
+    if variant_counts() != ({("flash_attention", "tc"): n} if n else {}):
         raise AssertionError(f"{tag}: variants {variant_counts()}, want all "
-                             f"{n} {variant}")
+                             f"{n} tc")
 
 
 def phase_serve_families(launches, smi):
@@ -3366,11 +3494,11 @@ def train_vs_plain(spec, params, batch, prefix, n_fwd, n_bwd):
 
 
 def train_steps(launches, spec, step, params, opt_state, batches, want,
-                prefix, smi, variant="tc"):
+                prefix, smi):
     """``len(batches)`` train steps, each launching exactly ``want``, every
-    flash launch ``variant`` (the tensor-core one unless named), every
-    loss and norm finite and every gradient leaf non-zero in every layer.
-    Returns (params, opt_state)."""
+    flash launch the tensor-core variant, every loss and norm finite and
+    every gradient leaf non-zero in every layer.  Returns (params,
+    opt_state)."""
     from repro_torch.kernels import _build
     losses, walls = [], []
     for i, batch in enumerate(batches):
@@ -3382,11 +3510,11 @@ def train_steps(launches, spec, step, params, opt_state, batches, want,
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         if dict(launches) != want or variant_counts() != {
-                (k, variant): v for k, v in want.items()}:
+                (k, "tc"): v for k, v in want.items()}:
             raise AssertionError(f"{prefix} {spec.name} step {i}: launches "
                                  f"{dict(launches)}, variants "
                                  f"{variant_counts()}, want {want} all "
-                                 f"{variant}")
+                                 f"tc")
         loss, gnorm = st["loss"].item(), st["grad_norm"].item()
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError(f"{prefix} {spec.name} step {i}: loss "
@@ -3396,7 +3524,7 @@ def train_steps(launches, spec, step, params, opt_state, batches, want,
         del st
     log(f"{prefix} {spec.name} {len(batches)} steps: (loss, grad norm) "
         f"{losses}; walls {', '.join(f'{w:.0f}' for w in walls)} ms; "
-        f"launches a step {want}, every one {variant}; every gradient leaf "
+        f"launches a step {want}, every one tc; every gradient leaf "
         f"finite and non-zero in every layer ({len(norms)} leaves; smallest "
         f"{lo[0]} {lo[1].min().item():.3e}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; {smi}")
@@ -3742,9 +3870,9 @@ def phase_serve_vlm(launches, smi):
     heads of 256, vocabulary 257216; random bf16 weights from seed 0).
     ``serve.main`` at batch 4, a 512-token prompt and 32 new tokens, text
     only as the JAX CLI serves it: 18 flash launches a prefill, all
-    ``"simt"`` (dh 256).  Then patches (4, 256, 1152) fp32 from numpy seed
+    ``"tc"`` (dh 256).  Then patches (4, 256, 1152) fp32 from numpy seed
     0 and 256 text tokens through ``vlm.forward`` with caches at index 0
-    (512 positions, 18 ``"simt"`` launches, each within ``LAYER_TOL`` of
+    (512 positions, 18 ``"tc"`` launches, each within ``LAYER_TOL`` of
     its plain version), 32 decode steps from 512 (no launch), 200 text
     tokens behind the same patches (456 positions: the plain attention, 0
     launches), and the 512-position prefill against the plain attention
@@ -3768,7 +3896,7 @@ def phase_serve_vlm(launches, smi):
     gen = serve.main(["--arch", spec.name, "--batch", str(B), "--prompt-len",
                       str(P), "--gen", str(G), "--seed", "0"])
     wall = time.perf_counter() - t0
-    expect_launches(launches, n_flash, "serve paligemma-3b", "simt")
+    expect_launches(launches, n_flash, "serve paligemma-3b")
     if gen.shape != (B, G) or gen.min() < 0 or gen.max() >= lm.vocab:
         raise AssertionError(f"serve paligemma: tokens {gen.shape}")
 
@@ -3785,13 +3913,13 @@ def phase_serve_vlm(launches, smi):
     _build.VARIANTS.clear()
     with per_layer_check(errs):
         vlm_prefill(params, spec, patches, text, P + G)
-    expect_launches(launches, n_flash, "paligemma checked prefill", "simt")
+    expect_launches(launches, n_flash, "paligemma checked prefill")
     if len(errs) != n_flash:
         raise AssertionError(f"paligemma: {len(errs)} flash calls checked")
     launches.clear()
     _build.VARIANTS.clear()
     lk, sk, k_ms = vlm_prefill(params, spec, patches, text, P + G)
-    expect_launches(launches, n_flash, "paligemma prefill", "simt")
+    expect_launches(launches, n_flash, "paligemma prefill")
     with plain_attention():
         lp, sp, p_ms = vlm_prefill(params, spec, patches, text, P + G)
     logit_rel, st_rel = rel_err(lk, lp), state_rel(sk, sp)
@@ -3835,9 +3963,9 @@ def phase_serve_vlm(launches, smi):
         f"{lm.d_ff}, vocab {lm.vocab}, {cfg.n_patches} patches of "
         f"{cfg.d_vision}; {n_params} parameters, uncut) B={B}: serve.main "
         f"(text only, P={P}) {gen.shape} tokens in [0, {lm.vocab}), wall "
-        f"{wall:.1f} s, {n_flash} flash launches a prefill, all simt; "
+        f"{wall:.1f} s, {n_flash} flash launches a prefill, all tc; "
         f"patches ({B}, {cfg.n_patches}, {cfg.d_vision}) + {VLM_TEXT[0]} "
-        f"text tokens = {P} positions: {n_flash} launches, all simt, each "
+        f"text tokens = {P} positions: {n_flash} launches, all tc, each "
         f"within {LAYER_TOL} of the plain version (max {max(errs):.3e}); vs "
         f"the plain attention end to end: logits relative {logit_rel:.3e}, "
         f"KV caches relative <= {st_rel:.3e} (tol {LM_REL_TOL}), greedy "
@@ -3866,7 +3994,7 @@ def phase_train_vlm(launches, smi):
     """``[train-vlm]``: paligemma-3b uncut, ``TRAIN_STEPS_NEW`` AdamW
     steps of 8 x (256 patches + 256 text) through ``build_train_step``
     under ``dots``: 36 flash forwards (18, and 18 again in the remat's
-    recompute) and 18 backwards a step, all ``"simt"`` (dh 256); every
+    recompute) and 18 backwards a step, all ``"tc"`` (dh 256); every
     gradient leaf non-zero, ``vision_proj``'s too; the step against the
     plain attention, every flash call against its plain version; a
     profiled step; a bit-exact resume through ``CheckpointManager`` at
@@ -3893,7 +4021,7 @@ def phase_train_vlm(launches, smi):
     params, opt_state = train_steps(
         launches, spec, step, params, opt_init(params, opt_cfg),
         [vlm_batch(spec, i, TRAIN_B, S, "cuda")
-         for i in range(TRAIN_STEPS_NEW)], want, "[train-vlm]", smi, "simt")
+         for i in range(TRAIN_STEPS_NEW)], want, "[train-vlm]", smi)
     batch = vlm_batch(spec, TRAIN_STEPS_NEW, TRAIN_B, S, "cuda")
     train_vs_plain(spec, params, batch, "[train-vlm]", 2 * n, n)
     torch.cuda.reset_peak_memory_stats()
@@ -3912,16 +4040,43 @@ def phase_train_vlm(launches, smi):
         TRAIN_STEPS_NEW * want["flash_attention_bwd"]
 
 
+def in_turns(call, dh, reps):
+    """Device ms of ``call(None)`` (the rule's variant) and, at dh 256, of
+    ``call("simt")`` too, in turns (tc, simt, simt, tc), the lower reading
+    of each: (ms, {"variant_ms": ..., "readings": ...}), the dict empty
+    below dh 256."""
+    if dh != 256:
+        return device_ms(lambda: call(None), reps), {}
+    reads = {"tc": [], "simt": []}
+    for name in ("tc", "simt", "simt", "tc"):
+        forced = None if name == "tc" else name
+        reads[name].append(device_ms(lambda: call(forced), reps))
+    best = {k: min(v) for k, v in reads.items()}
+    return best["tc"], {"variant_ms": best, "readings": reads}
+
+
+def turns_note(variant_ms):
+    """The SIMT reading beside the rule's, for a log line."""
+    if not variant_ms:
+        return ""
+    r, best = variant_ms["readings"], variant_ms["variant_ms"]
+    return (" (in turns tc " + ", ".join(f"{t:.4f}" for t in r["tc"])
+            + ", simt " + ", ".join(f"{t:.4f}" for t in r["simt"])
+            + f"; simt {best['simt'] / best['tc']:.1f}x tc)")
+
+
 def time_family_shapes():
     """The flash forward at dbrx's prefill call (GQA 6, dh 128, causal),
     whisper's encoder call (full 1500 x 1500, dh 64) and paligemma's
-    prefill call (8/1 heads of 256, causal: the SIMT variant), and the
-    backward at ``BWD_SHAPES``' "dbrx GQA 6", "whisper cross" and
-    "paligemma training" cases, each by the rule's variant beside its
-    plain version, the library call and the bound; and the backward of
+    prefill call (8/1 heads of 256, causal), and the backward at
+    ``BWD_SHAPES``' "dbrx GQA 6", "whisper cross" and "paligemma
+    training" cases, each by the rule's variant (at dh 256 also by the
+    forced SIMT one, in turns tc, simt, simt, tc) beside its plain
+    version, the library call and the bound, paligemma's backward also
+    by split (``bwd_by_split``); and the backward of
     ``scaled_dot_product_attention`` at the "dh 256" case (the library
-    time of the SIMT backward's row).  Returns {"forward": ...,
-    "backward": ..., "library_bwd_dh256": ...}."""
+    time of that case's row).  Returns {"forward": ..., "backward": ...,
+    "library_bwd_dh256": ...}."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import mha_bwd_ref, mha_ref
     g = torch.Generator(device="cuda").manual_seed(23)
@@ -3933,8 +4088,9 @@ def time_family_shapes():
         q = rand(g, (B, Sq, H, dh), torch.bfloat16)
         k, v = (rand(g, (B, Sk, KH, dh), torch.bfloat16) for _ in range(2))
         var = fa.variant(q, k, v)
-        ms = device_ms(lambda: fa.flash_attention_gqa(q, k, v,
-                                                      causal=causal), 20)
+        ms, variant_ms = in_turns(
+            lambda forced: fa.flash_attention_gqa(
+                q, k, v, causal=causal, variant=forced), dh, 20)
         plain_ms = device_ms(lambda: mha_ref(q, k, v, causal=causal), 5)
         _, lib_ms, _, by_backend, backend = time_sdpa(
             *(x.transpose(1, 2).contiguous() for x in (q, k, v)),
@@ -3944,14 +4100,16 @@ def time_family_shapes():
         bound_ms, by, peak = bound(nbytes, flops, torch.bfloat16)
         log(f"[timing] flash_attention {tag} B={B} Sq={Sq} Sk={Sk} "
             f"H={H}/{KH} dh={dh} bf16 causal={causal}: {var} {ms:.4f} ms "
-            f"({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
+            f"({bound_ms / ms:.1%} of the bound){turns_note(variant_ms)}, "
+            f"plain {plain_ms:.4f} ms, "
             f"scaled_dot_product_attention {lib_ms:.4f} ms (ran {backend}; "
             + ", ".join(f"{n_} {t:.4f}" for n_, t in by_backend.items())
             + f"); bound {bound_ms:.5f} ms ({nbytes} B, {flops} FLOP, {by}; "
             f"peak {peak})")
         out["forward"][tag] = dict(ms=ms, variant=var, plain_ms=plain_ms,
                                    library_ms=lib_ms, library_backend=backend,
-                                   bound_ms=bound_ms, bound_by=by)
+                                   bound_ms=bound_ms, bound_by=by,
+                                   **variant_ms)
         del q, k, v
     for tag in ("dbrx GQA 6", "whisper cross", "paligemma training",
                 "dh 256"):
@@ -3970,15 +4128,20 @@ def time_family_shapes():
                 + ", ".join(f"{n_} {t:.4f} ms" for n_, t in
                             by_backend.items()))
             continue
-        ms = device_ms(lambda: fa.flash_attention_bwd(
-            q, k, v, o, do, lse, causal=causal), 10)
+        ms, variant_ms = in_turns(
+            lambda forced: fa.flash_attention_bwd(
+                q, k, v, o, do, lse, causal=causal, variant=forced), dh, 10)
+        if tag == "paligemma training":
+            variant_ms["by_split"] = bwd_by_split(q, k, v, o, do, lse,
+                                                  causal)
         plain_ms = device_ms(lambda: mha_bwd_ref(q, k, v, o, do, lse,
                                                  causal=causal), 3)
         nbytes, flops = bwd_work(B, S, H, KH, dh, dtype, causal)
         bound_ms, by, peak = bound(nbytes, flops, dtype)
         log(f"[timing] flash_attention_bwd {tag} B={B} S={S} H={H}/{KH} "
             f"dh={dh} bf16 causal={causal}: {var} {ms:.4f} ms "
-            f"({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
+            f"({bound_ms / ms:.1%} of the bound){turns_note(variant_ms)}, "
+            f"plain {plain_ms:.4f} ms, "
             f"scaled_dot_product_attention backward {lib_name} "
             f"{by_backend[lib_name]:.4f} ms (" + ", ".join(
                 f"{n_} {t:.4f}" for n_, t in by_backend.items())
@@ -3987,7 +4150,8 @@ def time_family_shapes():
         out["backward"][tag] = dict(ms=ms, variant=var, plain_ms=plain_ms,
                                     library_ms=by_backend[lib_name],
                                     library_backend=lib_name,
-                                    bound_ms=bound_ms, bound_by=by)
+                                    bound_ms=bound_ms, bound_by=by,
+                                    **variant_ms)
         del q, k, v, o, do, lse
     return out
 
@@ -4014,10 +4178,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import _build
     _build.load()
-    regs = [l.strip() for l in _build.BUILD_INFO["ptxas"].splitlines()
-            if "registers" in l or "spill" in l]
+    built = ptxas_kernels(_build.BUILD_INFO["ptxas"])
     log(f"[build] {_build.BUILD_INFO['seconds']:.1f} s -> "
-        f"{_build.BUILD_INFO['path']}; ptxas: " + " | ".join(regs))
+        f"{_build.BUILD_INFO['path']}; ptxas (kernel: registers, spill "
+        f"stores/loads bytes): " + " | ".join(
+            f"{n}: {r}, {st}/{ld}" for n, r, st, ld in built))
+    wide = [x for x in built if x[0].startswith("tc::") and "<256>" in x[0]]
+    if not _build.BUILD_INFO["ptxas"]:
+        raise AssertionError(f"no ptxas report beside "
+                             f"{_build.BUILD_INFO['path']}: remove the "
+                             f"library so that it is built again")
+    if len(wide) != 4 or any(x[2] or x[3] for x in wide):
+        raise AssertionError(f"ptxas: the dh-256 tensor-core kernels "
+                             f"{wide}, want four without spill")
 
     rng = np.random.default_rng(0)
     alu_err = phase_simt_alu(rng)
@@ -4070,10 +4243,16 @@ def main() -> int:
         "whisper-medium training (phase 23)": audio_bwd,
         "paligemma-3b training (phase 25)": vlm_bwd}
     kernels[-1]["shapes"] = shapes["backward"]
-    kernels[-1]["simt_dh256"]["library_ms"] = \
-        shapes["library_bwd_dh256"]["ms"]
-    kernels[-1]["simt_dh256"]["library_backend"] = \
-        shapes["library_bwd_dh256"]["backend"]
+    for key in ("tc_dh256", "simt_dh256"):
+        kernels[-1][key]["library_ms"] = shapes["library_bwd_dh256"]["ms"]
+        kernels[-1][key]["library_backend"] = \
+            shapes["library_bwd_dh256"]["backend"]
+    pali = shapes["forward"]["paligemma MQA dh 256"]
+    for key in ("tc", "simt"):
+        kernels[2][f"{key}_dh256"] = dict(
+            pali, variant=key, ms=pali["variant_ms"][key],
+            shape=list(next(x for x in FAMILY_FWD_SHAPES
+                            if x[0] == "paligemma MQA dh 256")[1:6]))
     kernels[0]["launches_by_path"] = {"staged path (phase 5)": alu_launches,
                                       "compiled binaries (phase 15)":
                                           compile_alu}

@@ -39,10 +39,11 @@
 // ldmatrix issue rate of mma.sync: about 34 GFLOP of m16n8k16 products at
 // that shape, the diagonal tiles' masked halves included.
 //
-// Variant "tc" (dkv_tc_kernel, dq_tc_kernel, delta_tc_kernel; bf16, dh 64
-// or 128, 16-byte aligned rows of q, k, v, o and dO), what training runs.
-// Each CTA has 4 warps and 16 rows a warp, on mma.sync m16n8k16 (bf16 in,
-// fp32 accumulator) with the helpers of mma.cuh, as the forward's "tc".
+// Variant "tc" (bf16, dh 64, 128 or 256, 16-byte aligned rows of q, k, v,
+// o and dO), what training runs, on mma.sync m16n8k16 (bf16 in, fp32
+// accumulator) with the helpers of mma.cuh, as the forward's "tc".  At dh
+// 64 and 128 (dkv_tc_kernel, dq_tc_kernel, delta_tc_kernel) each CTA has
+// 4 warps and 16 rows a warp:
 //  - dkv: a warp owns 16 keys.  It works in the transposed orientation,
 //    S^T = K Q^T and dP^T = V dO^T, with K and V the A operand (ldmatrix
 //    from the K and V tiles, loaded once) and Q and dO the "col" B operand
@@ -76,10 +77,44 @@
 // banks.  Shared memory: six 64-row tiles and two stages of the lse and D
 // rows, 103 KB at dh 128 (two CTAs an SM) and 55 KB at dh 64.  P and dS
 // are rounded to bf16 before their products, as in FlashAttention-2 and
-// as the forward rounds P.  wgmma with TMA is later work.
+// as the forward rounds P.
+//
+// At dh 256 (paligemma's one KV head of 256) a warp of that design would
+// hold two 16 x 256 fp32 accumulators, 256 registers a thread, and the
+// (KV head, batch, key tile) grid is 64 CTAs at paligemma's training
+// shape (B 8, S 512, 8/1 heads).  So its kernels (dkv_tc_wide_kernel,
+// dq_tc_wide_kernel, delta_tc_kernel<256>, dkv_sum_kernel) have CTAs of 8
+// warps that share the products without computing any twice:
+//  - dkv: warp w computes S^T and dP^T for keys 16 (w % 4) .. +15 and
+//    queries 32 (w / 4) .. +31 of the 64 x 64 tile pair over the whole
+//    head, forms P^T and dS^T on the fragments and writes them to shared
+//    memory in bf16 (two 64 x 64 tiles); after a barrier it owns dK and
+//    dV of keys 16 (w % 4) .. +15 x columns 128 (w / 4) .. +127 and reads
+//    the P^T and dS^T rows of its keys back by ldmatrix as A fragments:
+//    128 accumulator registers and 32 for S^T and dP^T.  K and V are
+//    loaded once, Q, dO and their lse and D rows through the two-stage
+//    ring: 217 KB of shared memory, one CTA an SM, two barriers an
+//    iteration.  The grid gains a split of each GQA group's query heads
+//    (flash_attention.bwd_split picks it: the smallest divisor of H / KH
+//    whose CTAs outnumber the SMs; 4 at paligemma's shape, 256 CTAs):
+//    each split writes fp32 partials of dK and dV to scratch, and
+//    dkv_sum_kernel adds them in split order (16-byte loads) and rounds
+//    to bf16, so the sums stay in a fixed order.  One split writes bf16
+//    directly.
+//  - dq: warp w computes S and dP for queries 16 (w % 4) .. +15 and keys
+//    32 (w / 4) .. +31 of the KV tile, writes dS in bf16 to shared memory
+//    and, after a barrier, owns dQ of its 16 queries x columns 128 (w / 4)
+//    .. +127 (64 registers).  Q and dO are loaded once, K and V through
+//    the ring: 208 KB, one CTA an SM; the grid is dh 128's, 512 CTAs at
+//    paligemma's shape.
+// What bounds them at that shape is the same five products' issue rate
+// (mma.sync and ldmatrix, 21.5 GFLOP with the masked halves of the
+// diagonal tiles) and the causal imbalance of the dK/dV tiles: key tile 0
+// sees all 8 query tiles, key tile 7 one.  wgmma with TMA is later work.
 //
 // Variant "simt" (delta_kernel, dkv_kernel, dq_kernel): float32 (the
-// tensor cores would round it to TF32), dh 1..256, unaligned rows.  Each
+// tensor cores would round it to TF32), dh 1..256 (bf16 at widths other
+// than 64, 128, 256), unaligned rows; `variant="simt"` forces it.  Each
 // CTA has 256 threads: 16 row groups g x 16 column lanes, and works on
 // tiles of TR = 16 R rows (R = 4 up to dh 128, R = 2 above).  For a TR x
 // TR tile of S or dP, thread (g, lane) owns rows Rg..Rg+R-1 and keys
@@ -506,21 +541,22 @@ struct Tile {
       6 * SIZE * sizeof(bf16) + 2 * 2 * BQ * sizeof(float);
 };
 
-// rows row0 .. row0+63 of one head into a padded tile (mma.cuh)
-template <int DH>
+// rows row0 .. row0+63 of one head into a padded tile (mma.cuh), by the
+// CTA's NT threads
+template <int DH, int NT = THREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long stride, int row0,
                                           int n) {
-  mma::cp_async_rows<BK, DH, Tile<DH>::LD, THREADS>(dst, src, stride, row0,
-                                                     n);
+  mma::cp_async_rows<BK, DH, Tile<DH>::LD, NT>(dst, src, stride, row0, n);
 }
 
 // lse and D of rows row0 .. row0+63 of one (batch, head) into rows[0..63]
-// and rows[64..127] by 4-byte async copies, a thread each; rows at or
-// past n are zero
+// and rows[64..127] by 4-byte async copies, one each by the first 128
+// threads; rows at or past n are zero
 __device__ __forceinline__ void load_rows(float* rows, const float* lse,
                                           const float* delta, int row0,
                                           int n) {
+  if (threadIdx.x >= 2 * BQ) return;
   const int row = row0 + (threadIdx.x & 63);
   const bool ok = row < n;
   mma::cp_async4(rows + threadIdx.x,
@@ -878,6 +914,397 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+// ---- dh 256: eight warps, P^T and dS^T (dS for dQ) through shared memory
+constexpr int WTHREADS = 256;  // 8 warps
+constexpr int PLD = BQ + 8;    // row stride of a P or dS tile, elements
+
+template <int DH>
+struct Wide {
+  using T = Tile<DH>;
+  static constexpr int DC = DH / 2;  // columns of dK, dV or dQ a warp owns
+  static constexpr int PSIZE = BK * PLD;
+  // K, V (dkv) or Q, dO (dq) loaded once, two stages of two tiles, the P
+  // and dS tiles (dkv) or the dS tile (dq), the lse and D rows
+  static constexpr size_t DKV_SMEM = 6 * T::SIZE * sizeof(bf16) +
+                                     2 * PSIZE * sizeof(bf16) +
+                                     2 * 2 * BQ * sizeof(float);
+  static constexpr size_t DQ_SMEM = 6 * T::SIZE * sizeof(bf16) +
+                                    PSIZE * sizeof(bf16) +
+                                    2 * BQ * sizeof(float);
+};
+
+// an accumulator fragment pair (rows r0 + g, r0 + g + 8; columns c0 + 8j +
+// 2 t4 (+1)) rounded to bf16 into a [64][PLD] tile
+__device__ __forceinline__ void put_bf16(bf16* tile, const float (&c)[4],
+                                         int r0, int c0, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  *reinterpret_cast<uint32_t*>(tile + (r0 + g) * PLD + c0 + 2 * t4) =
+      mma::pack_bf16(c[0], c[1]);
+  *reinterpret_cast<uint32_t*>(tile + (r0 + g + 8) * PLD + c0 + 2 * t4) =
+      mma::pack_bf16(c[2], c[3]);
+}
+
+// dK and dV of one 64-key tile of one KV head, for the query heads of one
+// split of its GQA group (all of them when n_split is 1), then the query
+// tiles, in that fixed order.  Warp w: S^T and dP^T of keys 16 (w % 4) ..
+// +15 x queries 32 (w / 4) .. +31 of the tile over the whole head; dK and
+// dV of the same keys x columns DC (w / 4) .. +DC-1.  `part` null: dk and
+// dv in bf16; else fp32 partials (2, n_split, B, Sk, KH, DH), summed by
+// dkv_sum_kernel
+template <int DH>
+__global__ void __launch_bounds__(WTHREADS, 1)
+    dkv_tc_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, float* __restrict__ part,
+                       Strides qs, Strides ks, Strides vs, Strides dos,
+                       Strides dks, Strides dvs, int rep, int H, int KH,
+                       int Sq, int Sk, float scale, int causal, int n_split) {
+  using T = Tile<DH>;
+  using W = Wide<DH>;
+  constexpr int KC = DH / 16;
+  constexpr int NO = W::DC / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + T::SIZE;
+  bf16* ring = Vs + T::SIZE;  // stage s: Q at 2s, dO at 2s + 1 tiles
+  bf16* Ps = ring + 4 * T::SIZE;
+  bf16* Ss = Ps + W::PSIZE;
+  float* rows = reinterpret_cast<float*>(Ss + W::PSIZE);  // 128 a stage
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kr = (warp & 3) * 16;   // the warp's keys in the tile
+  const int qc = (warp >> 2) * 32;  // its queries in the tile (S^T, dP^T)
+  const int dc = (warp >> 2) * W::DC;  // its columns of dK and dV
+  const int hk = blockIdx.x / n_split, sp = blockIdx.x % n_split;
+  const int b = blockIdx.y, kt = blockIdx.z;
+  const int k0 = kt * BK, kw = k0 + kr;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int qt0 = causal ? kt : 0;  // no row of an earlier tile sees k0
+  const int n_per = max(n_qt - qt0, 0), rs = rep / n_split;
+  const int n_it = rs * n_per, h0 = hk * rep + sp * rs;
+  const float scale_log2 = scale * LOG2E;
+
+  // iteration i: query head h0 + i / n_per, query tile qt0 + i % n_per
+  auto issue = [&](int i) {
+    const int h = h0 + i / n_per, q0 = (qt0 + i % n_per) * BQ;
+    bf16* stage = ring + 2 * (i & 1) * T::SIZE;
+    const long long bh = static_cast<long long>(b) * H + h;
+    load_tile<DH, WTHREADS>(stage, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
+    load_tile<DH, WTHREADS>(stage + T::SIZE, dout + b * dos.b + h * dos.h,
+                            dos.s, q0, Sq);
+    load_rows(rows + 2 * BQ * (i & 1), lse + bh * Sq, delta + bh * Sq, q0,
+              Sq);
+    mma::cp_async_commit();
+  };
+  if (n_it > 0) {
+    load_tile<DH, WTHREADS>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, Sk);
+    load_tile<DH, WTHREADS>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, Sk);
+    issue(0);
+  }
+
+  // keys kw + g + 8 (e >> 1), columns dc + 8j + 2 t4 + (e & 1)
+  float dK[NO][4], dV[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dK[j][e] = dV[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    mma::cp_async_wait<0>();  // iteration it's tiles have landed
+    __syncthreads();          // ... for every thread; it - 1 is consumed
+    if (it + 1 < n_it) issue(it + 1);
+    const bf16* Qs = ring + 2 * (it & 1) * T::SIZE;
+    const bf16* Gs = Qs + T::SIZE;
+    const float* Ls = rows + 2 * BQ * (it & 1);
+    const float* Ds = Ls + BQ;
+    const int q0 = (qt0 + it % n_per) * BQ;
+
+    // S^T = K Q^T, dP^T = V dO^T: keys kw + g (+8) x queries qc + 8j +
+    // 2 t4 (+1)
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t ka[4], va[4];
+      frag_a<T::LD>(ka, Ks, kr, kc * 16, lane);
+      frag_a<T::LD>(va, Vs, kr, kc * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t qb[4], gb[4];
+        frag_b<T::LD>(qb, Qs, qc + np * 16, kc * 16, lane);
+        mma::mma_bf16(st[2 * np], ka, qb[0], qb[1]);
+        mma::mma_bf16(st[2 * np + 1], ka, qb[2], qb[3]);
+        frag_b<T::LD>(gb, Gs, qc + np * 16, kc * 16, lane);
+        mma::mma_bf16(dpt[2 * np], va, gb[0], gb[1]);
+        mma::mma_bf16(dpt[2 * np + 1], va, gb[2], gb[3]);
+      }
+    }
+
+    // P^T and dS^T on the fragments, exactly 0 where masked, to shared
+    // memory in bf16
+    const bool edge = q0 + qc + 32 > Sq || kw + 16 > Sk ||
+                      (causal && q0 + qc < kw + 15);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = qc + 8 * j + 2 * t4;  // the lane's first query
+      const float2 l2 = *reinterpret_cast<const float2*>(Ls + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(Ds + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lq = (e & 1) ? l2.y : l2.x, dq = (e & 1) ? d2.y : d2.x;
+        float p = exp2f(fmaf(st[j][e], scale_log2, -lq * LOG2E));
+        float ds = p * (dpt[j][e] - dq);
+        if (edge) {
+          const int row = q0 + c + (e & 1), key = kw + g + 8 * (e >> 1);
+          if (row >= Sq || key >= Sk || (causal && row < key))
+            p = ds = 0.f;
+        }
+        st[j][e] = p;
+        dpt[j][e] = ds;
+      }
+      put_bf16(Ps, st[j], kr, qc + 8 * j, lane);
+      put_bf16(Ss, dpt[j], kr, qc + 8 * j, lane);
+    }
+    __syncthreads();  // the tile's P^T and dS^T are whole
+
+    // dV += P^T dO, dK += dS^T Q over the tile's 64 queries, the warp's
+    // columns
+#pragma unroll
+    for (int kc = 0; kc < BQ / 16; ++kc) {
+      uint32_t pa[4], sa[4];
+      frag_a<PLD>(pa, Ps, kr, kc * 16, lane);
+      frag_a<PLD>(sa, Ss, kr, kc * 16, lane);
+#pragma unroll
+      for (int dp = 0; dp < W::DC / 16; ++dp) {
+        uint32_t gb[4], qb[4];
+        frag_bt<T::LD>(gb, Gs, kc * 16, dc + dp * 16, lane);
+        mma::mma_bf16(dV[2 * dp], pa, gb[0], gb[1]);
+        mma::mma_bf16(dV[2 * dp + 1], pa, gb[2], gb[3]);
+        frag_bt<T::LD>(qb, Qs, kc * 16, dc + dp * 16, lane);
+        mma::mma_bf16(dK[2 * dp], sa, qb[0], qb[1]);
+        mma::mma_bf16(dK[2 * dp + 1], sa, qb[2], qb[3]);
+      }
+    }
+  }
+
+  const long long n_out = static_cast<long long>(gridDim.y) * Sk * KH * DH;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw + g + 8 * r;
+    if (key >= Sk) continue;
+    if (part == nullptr) {
+      bf16* krow = dk + b * dks.b + key * dks.s + hk * dks.h + dc + 2 * t4;
+      bf16* vrow = dv + b * dvs.b + key * dvs.s + hk * dvs.h + dc + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        *reinterpret_cast<uint32_t*>(krow + 8 * j) =
+            mma::pack_bf16(dK[j][2 * r] * scale, dK[j][2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(vrow + 8 * j) =
+            mma::pack_bf16(dV[j][2 * r], dV[j][2 * r + 1]);
+      }
+    } else {  // (2, n_split, B, Sk, KH, DH); dK unscaled
+      float* kp = part + sp * n_out +
+                  ((static_cast<long long>(b) * Sk + key) * KH + hk) * DH +
+                  dc + 2 * t4;
+      float* vp = kp + n_split * n_out;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        *reinterpret_cast<float2*>(kp + 8 * j) =
+            make_float2(dK[j][2 * r], dK[j][2 * r + 1]);
+        *reinterpret_cast<float2*>(vp + 8 * j) =
+            make_float2(dV[j][2 * r], dV[j][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dk = scale * the sum of the n_split partials of dK, dv the sum of dV's,
+// in split order; four columns a thread
+__global__ void __launch_bounds__(256)
+    dkv_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, Strides dks, Strides dvs, int Sk,
+                   int KH, int dh, int n_split, long long n_out,
+                   float scale) {
+  const long long i4 =
+      (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i4 >= n_out) return;
+  const int which = blockIdx.y;  // 0: dK, 1: dV
+  const float* src = part + which * n_split * n_out + i4;
+  float4 a = *reinterpret_cast<const float4*>(src);
+  for (int s = 1; s < n_split; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(src + s * n_out);
+    a.x += x.x;
+    a.y += x.y;
+    a.z += x.z;
+    a.w += x.w;
+  }
+  const float f = which ? 1.f : scale;
+  const int c = static_cast<int>(i4 % dh);
+  const long long rest = i4 / dh;
+  const int hk = static_cast<int>(rest % KH);
+  const int key = static_cast<int>((rest / KH) % Sk);
+  const int b = static_cast<int>(rest / KH / Sk);
+  const Strides st = which ? dvs : dks;
+  bf16* dst = (which ? dv : dk) + b * st.b + key * st.s + hk * st.h + c;
+  const uint2 out = make_uint2(mma::pack_bf16(a.x * f, a.y * f),
+                               mma::pack_bf16(a.z * f, a.w * f));
+  *reinterpret_cast<uint2*>(dst) = out;
+}
+
+// dQ of one 64-query tile of one head: the KV tiles in order.  Warp w: S
+// and dP of queries 16 (w % 4) .. +15 x keys 32 (w / 4) .. +31 of the KV
+// tile over the whole head; dQ of the same queries x columns DC (w / 4) ..
+// +DC-1
+template <int DH>
+__global__ void __launch_bounds__(WTHREADS, 1)
+    dq_tc_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dq,
+                      Strides qs, Strides ks, Strides vs, Strides dos,
+                      Strides dqs, int rep, int H, int Sq, int Sk,
+                      float scale, int causal) {
+  using T = Tile<DH>;
+  using W = Wide<DH>;
+  constexpr int KC = DH / 16;
+  constexpr int NO = W::DC / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Gs = Qs + T::SIZE;
+  bf16* ring = Gs + T::SIZE;  // stage s: K at 2s, V at 2s + 1 tiles
+  bf16* Ss = ring + 4 * T::SIZE;
+  float* rows = reinterpret_cast<float*>(Ss + W::PSIZE);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qr = (warp & 3) * 16;      // the warp's queries in the tile
+  const int kc0 = (warp >> 2) * 32;    // its keys in the KV tile (S, dP)
+  const int dc = (warp >> 2) * W::DC;  // its columns of dQ
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / rep;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ, w0 = q0 + qr;
+  const long long bh = static_cast<long long>(b) * H + h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  const float scale_log2 = scale * LOG2E;
+
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, qt + 1);
+
+  load_tile<DH, WTHREADS>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
+  load_tile<DH, WTHREADS>(Gs, dout + b * dos.b + h * dos.h, dos.s, q0,
+                          Sq);
+  load_rows(rows, lse + bh * Sq, delta + bh * Sq, q0, Sq);
+  load_tile<DH, WTHREADS>(ring, kb, ks.s, 0, Sk);
+  load_tile<DH, WTHREADS>(ring + T::SIZE, vb, vs.s, 0, Sk);
+  mma::cp_async_commit();
+
+  // rows w0 + g + 8 (e >> 1), columns dc + 8j + 2 t4 + (e & 1)
+  float dQ[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dQ[j][e] = 0.f;
+  float lr[2], dr[2];  // lse (log2 units) and D of rows g and g + 8
+
+  for (int t = 0; t < n_tiles; ++t) {
+    mma::cp_async_wait<0>();  // tile t has landed
+    __syncthreads();          // ... for every thread; tile t-1 is consumed
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lr[r] = rows[qr + g + 8 * r] * LOG2E;
+        dr[r] = rows[BQ + qr + g + 8 * r];
+      }
+    }
+    if (t + 1 < n_tiles) {  // tile t+1 into the other stage
+      bf16* nxt = ring + 2 * ((t + 1) & 1) * T::SIZE;
+      load_tile<DH, WTHREADS>(nxt, kb, ks.s, (t + 1) * BK, Sk);
+      load_tile<DH, WTHREADS>(nxt + T::SIZE, vb, vs.s, (t + 1) * BK, Sk);
+      mma::cp_async_commit();
+    }
+    const bf16* Ks = ring + 2 * (t & 1) * T::SIZE;
+    const bf16* Vs = Ks + T::SIZE;
+
+    // S = Q K^T, dP = dO V^T: rows w0 + g (+8) x keys kc0 + 8j + 2 t4 (+1)
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4], ga[4];
+      frag_a<T::LD>(qa, Qs, qr, kc * 16, lane);
+      frag_a<T::LD>(ga, Gs, qr, kc * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t kf[4], vf[4];
+        frag_b<T::LD>(kf, Ks, kc0 + np * 16, kc * 16, lane);
+        mma::mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma::mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+        frag_b<T::LD>(vf, Vs, kc0 + np * 16, kc * 16, lane);
+        mma::mma_bf16(dp[2 * np], ga, vf[0], vf[1]);
+        mma::mma_bf16(dp[2 * np + 1], ga, vf[2], vf[3]);
+      }
+    }
+
+    // dS = P o (dP - D) on the fragments, exactly 0 where masked, to
+    // shared memory in bf16
+    const int k0 = t * BK + kc0;  // the warp's first key
+    const bool edge = k0 + 32 > Sk || w0 + 16 > Sq ||
+                      (causal && k0 + 31 > w0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float ds = exp2f(fmaf(s[j][e], scale_log2, -lr[r])) *
+                   (dp[j][e] - dr[r]);
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int row = w0 + g + 8 * r;
+          if (key >= Sk || row >= Sq || (causal && row < key)) ds = 0.f;
+        }
+        s[j][e] = ds;
+      }
+      put_bf16(Ss, s[j], qr, kc0 + 8 * j, lane);
+    }
+    __syncthreads();  // the tile's dS is whole
+
+    // dQ += dS K over the tile's 64 keys, the warp's columns
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t sa[4];
+      frag_a<PLD>(sa, Ss, qr, kc * 16, lane);
+#pragma unroll
+      for (int dn = 0; dn < W::DC / 16; ++dn) {
+        uint32_t kf[4];
+        frag_bt<T::LD>(kf, Ks, kc * 16, dc + dn * 16, lane);
+        mma::mma_bf16(dQ[2 * dn], sa, kf[0], kf[1]);
+        mma::mma_bf16(dQ[2 * dn + 1], sa, kf[2], kf[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    if (row >= Sq) continue;
+    bf16* dst = dq + b * dqs.b + row * dqs.s + h * dqs.h + dc + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          mma::pack_bf16(dQ[j][2 * r] * scale, dQ[j][2 * r + 1] * scale);
+  }
+}
+
 // the dynamic shared memory a kernel needs, and the carveout that gives
 // two CTAs an SM at dh 128
 template <typename K>
@@ -895,8 +1322,9 @@ cudaError_t max_shared(K kernel, size_t bytes) {
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, const long long* st, int B, int H, int KH,
-           int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
+           void* dk, void* dv, float* part, const long long* st, int B,
+           int H, int KH, int Sq, int Sk, float scale, int causal,
+           int n_split, cudaStream_t stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]},
       dos{st[12], st[13], st[14]}, dqs{st[15], st[16], st[17]},
@@ -906,7 +1334,6 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const bf16* vt = static_cast<const bf16*>(v);
   const bf16* dot = static_cast<const bf16*>(dout);
   const int rep = H / KH;
-  const size_t bytes = Tile<DH>::SMEM;
 
   const long long rows = static_cast<long long>(B) * H * Sq;
   const unsigned blocks =
@@ -916,22 +1343,52 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  auto dkv = dkv_tc_kernel<DH>;
-  err = max_shared(dkv, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dkv<<<dim3(KH, B, (Sk + BK - 1) / BK), THREADS, bytes, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), qs, ks, vs, dos, dks, dvs, rep, H, Sq, Sk,
-      scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (DH > 128) {
+    using W = Wide<DH>;
+    auto dkv = dkv_tc_wide_kernel<DH>;
+    err = max_shared(dkv, W::DKV_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dkv<<<dim3(KH * n_split, B, (Sk + BK - 1) / BK), WTHREADS, W::DKV_SMEM,
+          stream>>>(qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dk),
+                    static_cast<bf16*>(dv), n_split > 1 ? part : nullptr, qs,
+                    ks, vs, dos, dks, dvs, rep, H, KH, Sq, Sk, scale, causal,
+                    n_split);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (n_split > 1) {
+      const long long n_out = static_cast<long long>(B) * Sk * KH * DH;
+      dkv_sum_kernel<<<dim3(static_cast<unsigned>((n_out / 4 + 255) / 256),
+                            2), 256, 0, stream>>>(
+          part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dks, dvs, Sk,
+          KH, DH, n_split, n_out, scale);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    auto dqk = dq_tc_wide_kernel<DH>;
+    err = max_shared(dqk, W::DQ_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dqk<<<dim3(H, B, (Sq + BQ - 1) / BQ), WTHREADS, W::DQ_SMEM, stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), qs, ks, vs, dos,
+        dqs, rep, H, Sq, Sk, scale, causal);
+  } else {
+    const size_t bytes = Tile<DH>::SMEM;
+    auto dkv = dkv_tc_kernel<DH>;
+    err = max_shared(dkv, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dkv<<<dim3(KH, B, (Sk + BK - 1) / BK), THREADS, bytes, stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), qs, ks, vs, dos, dks, dvs, rep, H, Sq, Sk,
+        scale, causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
 
-  auto dqk = dq_tc_kernel<DH>;
-  err = max_shared(dqk, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dqk<<<dim3(H, B, (Sq + BQ - 1) / BQ), THREADS, bytes, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), qs, ks, vs, dos,
-      dqs, rep, H, Sq, Sk, scale, causal);
+    auto dqk = dq_tc_kernel<DH>;
+    err = max_shared(dqk, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dqk<<<dim3(H, B, (Sq + BQ - 1) / BQ), THREADS, bytes, stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), qs, ks, vs, dos,
+        dqs, rep, H, Sq, Sk, scale, causal);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -945,24 +1402,34 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // `strides` holds the batch, sequence and head strides of q, k, v, o,
 // dout, dq, dk and dv, in elements, in that order (24 values, host
 // memory).  dtype: 0 float32, 1 bfloat16.  use_tc: 0 "simt" (dh 1..256),
-// 1 "tc" (bfloat16, dh 64 or 128, 16-byte aligned pointers, strides
-// multiples of 8 elements: the wrapper's rule).  H % KH == 0.  Returns
-// cudaGetLastError() after the last launch.
+// 1 "tc" (bfloat16, dh 64, 128 or 256, 16-byte aligned pointers, strides
+// multiples of 8 elements: the wrapper's rule).  n_split: at dh 256 "tc",
+// the number of parts the query heads of a GQA group are split into for
+// dK and dV (a divisor of H / KH); above 1, `part` is fp32 scratch of 2 x
+// n_split x B x Sk x KH x dh values.  Else 1 and null.  H % KH == 0.
+// Returns cudaGetLastError() after the last launch.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, const long long* strides, int B, int H, int KH, int Sq, int Sk,
-    int dh, float scale, int causal, int dtype, int use_tc, void* stream) {
+    int dh, float scale, int causal, int dtype, int use_tc, int n_split,
+    float* part, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh < 1 || dh > 256 || KH < 1 || H % KH)
+  if (dh < 1 || dh > 256 || KH < 1 || H % KH || n_split < 1 ||
+      (H / KH) % n_split || (n_split > 1 && (part == nullptr || dh != 256 ||
+                                             !use_tc)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (use_tc) {
     if (dtype == 1 && dh == 64)
-      return tc::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                            strides, B, H, KH, Sq, Sk, scale, causal, s);
+      return tc::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
+                            strides, B, H, KH, Sq, Sk, scale, causal, 1, s);
     if (dtype == 1 && dh == 128)
-      return tc::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                             strides, B, H, KH, Sq, Sk, scale, causal, s);
+      return tc::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
+                             strides, B, H, KH, Sq, Sk, scale, causal, 1, s);
+    if (dtype == 1 && dh == 256)
+      return tc::launch<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
+                             strides, B, H, KH, Sq, Sk, scale, causal,
+                             n_split, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 1)

@@ -55,6 +55,25 @@ __device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst,
   }
 }
 
+// the same as a loop that is not unrolled: each copy's address is
+// computed where it is issued, so a kernel that calls it in its main loop
+// keeps no hoisted per-copy offsets live in registers (at dh 256 a tile
+// is 16 copies a thread of 128, 32 64-bit offsets for K and V)
+template <int ROWS, int DH, int LD, int THREADS>
+__device__ __forceinline__ void cp_async_rows_rolled(
+    __nv_bfloat16* dst, const __nv_bfloat16* src, long long stride, int row0,
+    int n) {
+  constexpr int CH = DH / 8;
+#pragma unroll 1
+  for (int e = 0; e < ROWS * CH / THREADS; ++e) {
+    const int i = e * THREADS + threadIdx.x;
+    const int r = i / CH, c = i % CH, row = row0 + r;
+    const bool ok = row < n;
+    cp_async16(dst + r * LD + c * 8, src + (ok ? row * stride : 0) + c * 8,
+               ok ? 16 : 0);
+  }
+}
+
 // 4 bytes from global to shared (src_bytes 0 or 4, zero-filled as above)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {

@@ -51,7 +51,8 @@ VARIANTS: collections.Counter = collections.Counter()
 #: dtype codes of the C entries that take float32 or bfloat16 tensors
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: what the last build did: seconds, library path, ptxas report
+#: what the last build did: seconds, library path, ptxas report (kept
+#: beside the library as ``.ptxas`` and read back when it is cached)
 BUILD_INFO: dict = {}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -90,9 +91,11 @@ def build() -> Path:
     srcs, key = _sources()
     out_dir = _build_dir()
     lib_path = out_dir / f"librepro_torch_{key}.so"
+    report = lib_path.with_suffix(".ptxas")
     if lib_path.exists():
         BUILD_INFO.update(seconds=0.0, path=str(lib_path), cached=True,
-                          ptxas="")
+                          ptxas=report.read_text() if report.exists()
+                          else "")
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -113,6 +116,10 @@ def build() -> Path:
                           text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    # the report lands before the library, so a cached library has one
+    tmp_report = out_dir / f"librepro_torch_{tag}.ptxas"
+    tmp_report.write_text("".join(logs))
+    os.replace(tmp_report, report)
     os.replace(tmp, lib_path)
     for o in objs:
         o.unlink()
@@ -139,7 +146,7 @@ def load() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = i
         lib.flash_attention_bwd_launch.argtypes = (
             [p] * 10 + [ctypes.POINTER(ctypes.c_longlong)] + [i] * 6
-            + [ctypes.c_float, i, i, i, p])
+            + [ctypes.c_float, i, i, i, i, p, p])
         lib.flash_attention_bwd_launch.restype = i
         lib.matmul_launch.argtypes = [p] * 3 + [i] * 5 + [p]
         lib.matmul_launch.restype = i

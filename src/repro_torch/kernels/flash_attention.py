@@ -8,9 +8,10 @@ causal or full attention with an online softmax, the causal mask
 one head each (see the source's header for the designs and what bounds
 them):
 
-* ``"tc"``: bf16 on the tensor cores (``mma.sync`` fed by a ``cp.async``
-  ring of K/V tiles), for dh 64 or 128 with 16-byte aligned rows: what
-  the serving path's prefill runs;
+* ``"tc"``: bf16 on the tensor cores (``mma.sync`` fed by ``cp.async``
+  copies of K/V tiles), for dh 64, 128 or 256 with 16-byte aligned rows:
+  what every prefill of the model paths runs (at dh 256, paligemma's,
+  Q stays in shared memory and K and V move in turn);
 * ``"simt"``: fp32 FMAs from shared memory, for float32 (never TF32),
   other head widths and unaligned strides.
 
@@ -45,6 +46,7 @@ raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -57,8 +59,9 @@ MAX_HEAD_DIM = 256
 #: head widths the backward kernel takes (its SIMT variant uses 32-row
 #: tiles above dh 128, where 64-row ones overflow shared memory)
 MAX_BWD_HEAD_DIM = MAX_HEAD_DIM
-#: head widths the tensor-core variant is built for
-TC_HEAD_DIMS = (64, 128)
+#: head widths the tensor-core variants (forward and backward) are built
+#: for; dh 256 has kernels of its own design in both sources
+TC_HEAD_DIMS = (64, 128, 256)
 _GRID_MAX = 65535                    # gridDim.y and .z
 _QTILE = 64                          # query rows per CTA
 
@@ -66,9 +69,11 @@ _QTILE = 64                          # query rows per CTA
 def variant(q, k, v, *more) -> str:
     """The kernel variant the rule gives q, k, v (and ``more``: the
     backward's o and dO): ``"tc"`` for bfloat16 with dh in
-    :data:`TC_HEAD_DIMS`, every data pointer 16-byte aligned and every
-    stride but the last (contiguous) one a multiple of 8 elements, so that
-    each row is whole 16-byte copies; else ``"simt"``."""
+    :data:`TC_HEAD_DIMS` (64, 128, 256), every data pointer 16-byte
+    aligned and every stride but the last (contiguous) one a multiple of 8
+    elements, so that each row is whole 16-byte copies; else ``"simt"``
+    (float32 at any width, which the tensor cores would round to TF32;
+    other widths; unaligned rows)."""
     if q.shape[-1] not in TC_HEAD_DIMS:
         return "simt"
     for x in (q, k, v, *more):
@@ -77,6 +82,28 @@ def variant(q, k, v, *more) -> str:
                 st % 8 for st in x.stride()[:-1]):
             return "simt"
     return "tc"
+
+
+def bwd_split(B: int, H: int, KH: int, Sk: int, dh: int, n_sm: int) -> int:
+    """The tensor-core backward's split of each GQA group's H // KH query
+    heads at dh 256, where one CTA of ``csrc/flash_attention_bwd.cu``
+    (``dkv_tc_wide_kernel``) owns a 64-key tile's dK and dV for one
+    split and writes fp32 partials that one small kernel sums in split
+    order: the smallest divisor d of H // KH whose d * KH * B * ceil(Sk /
+    64) CTAs outnumber the card's ``n_sm`` SMs, else H // KH.  1 at other
+    widths.  paligemma's training call (B 8, Sk 512, 8/1 heads) on 132
+    SMs: 4, so 256 CTAs where one KV head alone gives 64."""
+    if dh != 256:
+        return 1
+    rep = H // KH
+    tiles = KH * B * -(-Sk // _QTILE)
+    return next((d for d in range(1, rep + 1)
+                 if rep % d == 0 and tiles * d > n_sm), rep)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_blocks(Sq: int, Sk: int, bq: int, bk: int) -> None:
@@ -174,8 +201,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     in q's dtype and dk, dv in k's.  ``variant``: None for the rule's
     choice (:func:`variant` over q, k, v, o and do), or ``"simt"`` to
     force the SIMT kernels.  CPU tensors take :func:`.ref.mha_bwd_ref`;
-    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (1 <= dh <= 256)
-    or raise."""
+    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (1 <= dh <= 256;
+    at dh 256 ``"tc"`` with fp32 scratch for :func:`bwd_split`'s
+    partials) or raise."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
@@ -187,8 +215,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     return _launch_bwd(q, k, v, o, do, lse, causal, variant)
 
 
-def _launch_bwd(q, k, v, o, do, lse, causal: bool, forced):
-    """The backward kernels on CUDA tensors: (dq, dk, dv)."""
+def _launch_bwd(q, k, v, o, do, lse, causal: bool, forced, split=None):
+    """The backward kernels on CUDA tensors: (dq, dk, dv).  ``split``:
+    None for :func:`bwd_split`'s choice, or a divisor of H // KH for the
+    tensor-core kernels at dh 256 (1 elsewhere), to time each split."""
     B, Sq, H, dh = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     if any(not x.is_cuda or x.device != q.device for x in (k, v, o, do, lse)):
@@ -208,6 +238,16 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, forced):
     if q.numel() == 0:
         return gq, gk, gv
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    if split is None:
+        split = bwd_split(B, H, KH, Sk, dh, _n_sm(q.get_device())) \
+            if chosen == "tc" else 1
+    elif split < 1 or (H // KH) % split or \
+            (split > 1 and (chosen != "tc" or dh != 256)):
+        raise ValueError(f"flash_attention_bwd: split {split} must divide "
+                         f"H // KH = {H // KH}, and be 1 unless the "
+                         f"tensor-core kernels run at dh 256")
+    part = torch.empty((2, split, B, Sk, KH, dh), dtype=torch.float32,
+                       device=q.device) if split > 1 else None
     strides = (ctypes.c_longlong * 24)(
         *(s for x in (q, k, v, o, do, gq, gk, gv) for s in x.stride()[:3]))
     lib = _build.load()
@@ -216,6 +256,7 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, forced):
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), gq.data_ptr(),
         gk.data_ptr(), gv.data_ptr(), strides, B, H, KH, Sq, Sk, dh,
         dh ** -0.5, int(causal), _build.DTYPES[q.dtype], int(chosen == "tc"),
+        split, None if part is None else part.data_ptr(),
         _build.stream_ptr(q))
     _build.check(rc, "flash_attention_bwd")
     _build.LAUNCHES["flash_attention_bwd"] += 1

@@ -267,11 +267,13 @@ FLASH_SHAPES = [(256, 256, 64, True), (256, 256, 128, True),
 
 
 def expected_flash_variant(dtype, dh, forced):
-    """bf16 at dh 64/128 takes the tensor cores unless the SIMT variant
-    is forced; float32 and other widths take SIMT."""
+    """bf16 at the tensor-core widths (``tfa.TC_HEAD_DIMS``: 64, 128 and
+    256) takes the tensor cores unless the SIMT variant is forced; float32
+    and other widths take SIMT."""
     if forced:
         return forced
-    return "tc" if dtype == torch.bfloat16 and dh in (64, 128) else "simt"
+    return "tc" if dtype == torch.bfloat16 and dh in tfa.TC_HEAD_DIMS \
+        else "simt"
 
 
 @pytest.mark.parametrize("forced", [None, "simt"])
@@ -571,8 +573,9 @@ def test_mixed_drain_attribution_on_card(card):
 # batch 2, smollm's 15/5 heads of 64), a ragged length, full attention,
 # float32 at dh 16 and Sq != Sk (the top-left causal mask) in float32 and
 # in bf16 at dh 64 (the tensor-core kernels' ragged tiles and mask), and
-# dh 256 (the SIMT kernels' 32-row tiles) in bf16 at a ragged length and
-# in float32
+# dh 256 in bf16 at a ragged length (the tensor-core kernels' wide
+# layout, or the SIMT kernels' 32-row tiles when forced) and in float32
+# (the SIMT kernels)
 FLASH_BWD_SHAPES = [
     (2, 256, 256, 16, 8, 128, torch.bfloat16, True),
     (2, 200, 200, 15, 5, 64, torch.bfloat16, True),
@@ -628,6 +631,24 @@ def test_flash_backward_kernel_matches_plain(card, B, Sq, Sk, H, KH, dh,
         assert torch.equal(a, b)
         torch.testing.assert_close(a.float(), w.float(), rtol=tol,
                                    atol=tol * float(w.float().abs().max()))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_flash_backward_split_matches_plain(card, split):
+    """The tensor-core backward at dh 256 with each split of an MQA
+    group's 8 query heads forced (fp32 partials summed in split order
+    above 1): each gradient within 2e-2 of its largest magnitude of
+    ``mha_bwd_ref``; a split that does not divide the group raises."""
+    from repro_torch.kernels.ref import mha_bwd_ref
+    q, k, v, do = _bwd_inputs(card, 2, 200, 200, 8, 1, 256, torch.bfloat16)
+    o, lse = tfa._launch(q, k, v, True, None, want_lse=True)
+    got = tfa._launch_bwd(q, k, v, o, do, lse, True, None, split=split)
+    want = mha_bwd_ref(q, k, v, o, do, lse, causal=True)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2 * float(w.float().abs().max()))
+    with pytest.raises(ValueError, match="split"):
+        tfa._launch_bwd(q, k, v, o, do, lse, True, None, split=3)
 
 
 def test_flash_attention_function_on_card(card):

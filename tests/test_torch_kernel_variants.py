@@ -38,7 +38,7 @@ def misaligned(shape, dtype):
     return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
 
 
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_flash_bf16_contiguous_takes_tc(dh):
     assert tfa.variant(*qkv(dh=dh)) == "tc"
 
@@ -54,7 +54,6 @@ def test_flash_bf16_cache_prefix_takes_tc():
 @pytest.mark.parametrize("dtype,dh", [(torch.float32, 128),
                                       (torch.float32, 64),
                                       (torch.bfloat16, 40),
-                                      (torch.bfloat16, 256),
                                       (torch.bfloat16, 16)])
 def test_flash_other_dtypes_and_widths_take_simt(dtype, dh):
     assert tfa.variant(*qkv(dh=dh, dtype=dtype)) == "simt"
@@ -157,11 +156,57 @@ def test_flash_bwd_other_inputs_take_simt(case):
     assert tfa.variant(*x) == "simt"
 
 
-def test_flash_bwd_dh_256_takes_simt():
-    """The backward takes every head width the forward takes; above dh
-    128 the rule gives the SIMT kernels (32-row tiles), bf16 included."""
+def test_flash_bwd_dh_256_takes_tc():
+    """The backward takes every head width the forward takes; at dh 256
+    (paligemma's) the rule gives bf16 the tensor-core kernels of that
+    width, as it gives the forward."""
     assert tfa.MAX_BWD_HEAD_DIM == tfa.MAX_HEAD_DIM == 256
-    assert tfa.variant(*bwd_inputs(dh=256)) == "simt"
+    assert tfa.variant(*bwd_inputs(dh=256)) == "tc"
+
+
+@pytest.mark.parametrize("case", ["float32", "misaligned q", "misaligned o",
+                                  "misaligned dO"])
+def test_flash_dh_256_other_inputs_take_simt(case):
+    """At dh 256 as at 64 and 128: float32 (the tensor cores would round
+    it to TF32) and a q, o or dO one element past a 16-byte boundary take
+    the SIMT kernels, forward (over q, k, v) and backward (over q, k, v,
+    o, dO)."""
+    x = list(bwd_inputs(dh=256, dtype=torch.float32 if case == "float32"
+                        else torch.bfloat16))
+    which = {"misaligned q": 0, "misaligned o": 3,
+             "misaligned dO": 4}.get(case)
+    if which is not None:
+        x[which] = misaligned(x[which].shape, torch.bfloat16)
+        assert x[which].data_ptr() % 16
+    assert tfa.variant(*x[:3]) == ("tc" if case in ("misaligned o",
+                                                    "misaligned dO")
+                                   else "simt")
+    assert tfa.variant(*x) == "simt"
+
+
+def test_flash_dh_256_cache_prefix_takes_tc():
+    """paligemma's prefill reads k/v as ``ck[:, :S]`` of a longer cache:
+    at dh 256 its rows are whole 16-byte copies too, so the forward and
+    the backward both take the tensor-core kernels."""
+    q, k, v = qkv(S=200, T=232, dh=256)
+    assert not k.is_contiguous()
+    assert tfa.variant(q, k, v) == "tc"
+    assert tfa.variant(*bwd_inputs(dh=256, S=200, T=232)) == "tc"
+
+
+@pytest.mark.parametrize("shape,n_sm,want", [
+    ((8, 8, 1, 512, 256), 132, 4),     # paligemma's training call
+    ((2, 8, 4, 256, 256), 132, 2),     # no divisor reaches 132: all 2
+    ((8, 32, 16, 512, 256), 132, 1),   # 1024 CTAs without a split
+    ((8, 12, 1, 512, 256), 132, 3),    # 3 divides 12; 2 gives only 128
+    ((8, 8, 1, 512, 128), 132, 1),     # other widths are never split
+    ((8, 8, 1, 512, 256), 16, 1)])
+def test_flash_bwd_split_rule(shape, n_sm, want):
+    """``bwd_split``: the smallest divisor of the GQA group whose dK/dV
+    CTAs (KV heads x batch x 64-key tiles x the divisor) outnumber the
+    card's SMs, else the whole group; 1 below dh 256."""
+    B, H, KH, Sk, dh = shape
+    assert tfa.bwd_split(B, H, KH, Sk, dh, n_sm) == want
 
 
 def test_mha_dh_256_differentiates_through_the_flash_function():
