@@ -231,7 +231,23 @@ Phases, each printed as it ends:
    forward and backward timed at the families' shapes (at paligemma's,
    the rule's ``"tc"`` kernels and the forced SIMT ones) beside their
    plain versions, the library calls and their bounds, and the backward
-   of ``scaled_dot_product_attention`` at dh 256.
+   of ``scaled_dot_product_attention`` at dh 256;
+26. the sharded executor over logical shards of the one card
+   (``[shard-sm]``): the five paper programs at n=256 on 8 SMs through
+   ``execute(shard_sm=True, sm_devices=["cuda:0"] * k)`` for k in {2, 4,
+   8}, and one execute of all five, each bit-equal to the unsharded run
+   on the card (gmem, the written mask of each launch, the six counters,
+   ``per_sm_cycles``, ``n_steps``, ``n_blocks``), held to the oracles and
+   the analytical replay (matmul 83968 cycles a block), with exactly one
+   ``fused_sm_run`` launch a shard with a real position in each group and
+   one ``shard.dispatch_groups`` a group; the conflict kernel (7 blocks
+   on 4 SMs, last writer 106); longtail drains under ``bucket`` and
+   ``balanced`` over 4 shards equal to the unsharded drains, with the
+   per-device cycles and the ``drain.shard.*`` gauges; a resident drain
+   with no gmem crossing; the serving CLI with ``--shard-sm`` on the one
+   card (one device, equal to the run without the flag); and the walls of
+   matmul n=256 unsharded and at each k, in turns.  Copies between
+   distinct cards are not exercised: one card.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are on the card named in the
@@ -4040,6 +4056,263 @@ def phase_train_vlm(launches, smi):
         TRAIN_STEPS_NEW * want["flash_attention_bwd"]
 
 
+# ------------------------------------------------------------ phase 26
+#: the SM mesh of phase 26: 8 SMs over k entries that all name the card
+SHARD_N_SM = 8
+SHARD_KS = (2, 4, 8)
+#: the longtail drains of phase 26: launches, SMs and shards
+SHARD_DRAIN = (8, 4, 4)
+
+
+@contextlib.contextmanager
+def written_masks():
+    """Record, per launch of one ``execute``, the union of the words its
+    positions wrote (the written masks ``fused_sm_run`` returns), by
+    wrapping the executor's ``fused_sm_run``; the kernel launches as
+    before."""
+    from repro_torch.runtime import executor
+    real, masks = executor.fused_sm_run, {}
+
+    def recording(cfg, n_warps, codes, geom, gmem, **kw):
+        mem, wrt, ctr = real(cfg, n_warps, codes, geom, gmem, **kw)
+        for li in sorted(set(geom[:, 0].tolist())):
+            rows = torch.as_tensor(np.flatnonzero(geom[:, 0] == li),
+                                   device=wrt.device)
+            m = wrt.index_select(0, rows).any(0)
+            masks[li] = m if li not in masks else masks[li] | m
+        return mem, wrt, ctr
+
+    executor.fused_sm_run = recording
+    try:
+        yield masks
+    finally:
+        executor.fused_sm_run = real
+
+
+def shard_prediction(n_blocks, n_sm, chunk, k):
+    """(fused_sm_run launches, dispatch groups) of a sharded ``execute``
+    of ``n_blocks`` positions: one launch a shard with a real position in
+    each group (``executor.shard_slots``)."""
+    from repro_torch.runtime.executor import shard_slots
+    _, _, groups = shard_slots(n_blocks, n_sm, chunk, k)
+    return sum(len(runs) for *_, runs in groups), len(groups)
+
+
+def sharded_execute(launches, specs, k, tag, n_sm=SHARD_N_SM, chunk=8):
+    """One ``execute(shard_sm=True)`` over ``["cuda:0"] * k`` and the same
+    call unsharded: every result field, the written masks and the report
+    bit-equal, the fused launches and ``shard.dispatch_groups`` equal to
+    :func:`shard_prediction`.  Returns (sharded grid, its launches)."""
+    from repro_torch import runtime as rt
+    groups = rt.METRICS.counter("shard.dispatch_groups")
+    with written_masks() as want_w:
+        want = rt.execute(specs, n_sm=n_sm, chunk=chunk, device="cuda")
+        want_res, want_rep = want.to_results(), want.report()
+    launches.clear()
+    g0 = groups.value
+    with written_masks() as got_w:
+        got = rt.execute(specs, n_sm=n_sm, chunk=chunk, shard_sm=True,
+                         sm_devices=["cuda:0"] * k, device="cuda")
+        res, rep = got.to_results(), got.report()
+    counts, n_groups = dict(launches), groups.value - g0
+    n_launch, n_group = shard_prediction(rep.n_blocks, n_sm, chunk, k)
+    if counts != {"fused_sm_run": n_launch} or n_groups != n_group:
+        raise AssertionError(f"{tag} k={k}: launched {counts} in {n_groups} "
+                             f"sharded groups, want {n_launch} fused_sm_run "
+                             f"in {n_group}")
+    for i, (a, b) in enumerate(zip(res, want_res)):
+        assert_same(a, b, f"{tag} k={k} launch {i} vs unsharded")
+    if sorted(got_w) != sorted(want_w) or not all(
+            torch.equal(got_w[i], want_w[i]) for i in want_w):
+        raise AssertionError(f"{tag} k={k}: written masks differ")
+    if not (np.array_equal(rep.per_sm_cycles, want_rep.per_sm_cycles)
+            and (rep.n_steps, rep.n_blocks) ==
+            (want_rep.n_steps, want_rep.n_blocks)):
+        raise AssertionError(f"{tag} k={k}: report differs from unsharded")
+    return got, n_launch
+
+
+def shard_drain_launches(launches, fn, n_sm, k, tag):
+    """Run a drain ``fn`` with the launch counts at 0 and the tracer on:
+    each dispatch group must launch ``fused_sm_run`` once a shard with a
+    real position (the server's chunk, ``max(2, n_sm)``).  Returns
+    ``fn``'s result and the launches."""
+    from repro_torch import obs
+    launches.clear()
+    obs.TRACER.clear().start()
+    try:
+        out = fn()
+    finally:
+        obs.TRACER.stop()
+    counts = dict(launches)
+    blocks = {sp.attrs["ticket"]: sp.attrs["n_blocks"]
+              for sp in obs.TRACER.find("submit") if "ticket" in sp.attrs}
+    groups = [sp.attrs["tickets"] for sp in obs.TRACER.find("dispatch")]
+    obs.TRACER.clear()
+    want = sum(shard_prediction(sum(blocks[t] for t in g), n_sm,
+                                max(2, n_sm), k)[0] for g in groups)
+    if counts != {"fused_sm_run": want}:
+        raise AssertionError(f"{tag}: launched {counts}, want {want} "
+                             f"fused_sm_run for {len(groups)} groups")
+    return out, want
+
+
+def conflict_kernel():
+    """Every block writes ``100 + flat-block-id`` over the same 32 words
+    (``tests/test_sharding.py``'s conflict kernel)."""
+    from repro_torch.core import asm, isa
+    p = asm.Program("conflict100")
+    p.s2r("r0", isa.SR_TID)
+    p.s2r("r1", isa.SR_CTA)
+    p.iadd("r1", "r1", 100)
+    p.stg("r0", "r1", 64)
+    p.exit()
+    return p.finish()
+
+
+def phase_shard_sm(launches, smi):
+    """``[shard-sm]``: the sharded executor over logical shards of the one
+    card (docstring item 26).  Returns the fused launches of its counted
+    sharded runs."""
+    from repro_torch import obs
+    from repro_torch import runtime as rt
+    from repro_torch.core.programs import ALL
+    from repro_torch.launch import gpgpu_serve
+    from repro_torch.runtime.executor import group_bounds
+    SERVE_LOG.parent.mkdir(parents=True, exist_ok=True)
+    t_phase, fused, n = time.perf_counter(), 0, 256
+    rng = np.random.default_rng(26)
+    inputs = {name: ALL[name].make_gmem(rng, n) for name in sorted(ALL)}
+    specs = {}
+    for name in sorted(ALL):
+        mod = ALL[name]
+        specs[name] = rt.LaunchSpec(mod.build(n), *mod.launch(n),
+                                    inputs[name].copy())
+    for k in SHARD_KS:
+        for name in sorted(ALL):
+            mod = ALL[name]
+            dg, got = sharded_execute(launches, [specs[name]], k, name)
+            fused += got
+            res, rep = dg.to_results()[0], dg.report()
+            # reduction at n=256 is one pass: its output is the final one
+            check_grid(mod, n, inputs[name], res, f"{name} k={k}")
+            if not np.array_equal(rep.per_sm_cycles,
+                                  res.per_sm_cycles(SHARD_N_SM)):
+                raise AssertionError(f"{name} k={k}: per-SM cycles != "
+                                     "analytical replay")
+            if name == "matmul" and \
+                    set(res.cycles_per_block.tolist()) != {83968}:
+                raise AssertionError("matmul cycles per block != 83968")
+            log(f"[shard-sm] {name} n={n} k={k} on {SHARD_N_SM} SMs: "
+                f"bit-equal to unsharded (gmem, written mask, 6 counters, "
+                f"report), oracle ok, per-SM {rep.per_sm_cycles.tolist()} "
+                f"== analytical, fused_sm_run {got} == predicted")
+        # the drain shape: all five launches in one execute
+        dg, got = sharded_execute(launches, list(specs.values()), k,
+                                  "five-launch execute")
+        fused += got
+        for name, res in zip(specs, dg.to_results()):
+            check_grid(ALL[name], n, inputs[name], res, f"drain {name}")
+        log(f"[shard-sm] five-launch execute k={k}: bit-equal to unsharded, "
+            f"per-SM {dg.report().per_sm_cycles.tolist()}, fused_sm_run "
+            f"{got} == predicted")
+    # the conflict kernel: 7 blocks on 4 SMs write the same 32 words
+    p = conflict_kernel()
+    for k in (2, 4):
+        dg, got = sharded_execute(
+            launches, [rt.LaunchSpec(p, (7, 1), (32, 1),
+                                     np.zeros(128, np.int32))],
+            k, "conflict", n_sm=4)
+        fused += got
+        gmem = dg.to_results()[0].gmem
+        if not ((gmem[64:96] == 106).all() and not gmem[:64].any()):
+            raise AssertionError(f"conflict k={k}: last writer lost")
+    log("[shard-sm] conflict kernel, 7 blocks on 4 SMs over 2 and 4 shards: "
+        "words 64-95 == 106 (the last block's), words 0-63 == 0")
+    # longtail drains over 4 shards against the same drains unsharded
+    n_l, n_sm, k = SHARD_DRAIN
+    work = gpgpu_serve.build_longtail_workload(n_l)
+    for policy in ("bucket", "balanced"):
+        _, st_a, _ = gpgpu_serve.drain_workload(work, n_sm, policy=policy,
+                                                device="cuda")
+        (srv, st_b, _), got = shard_drain_launches(
+            launches, lambda: gpgpu_serve.drain_workload(
+                work, n_sm, policy=policy, shard_sm=True,
+                sm_devices=["cuda:0"] * k, device="cuda"),
+            n_sm, k, f"longtail {policy}")
+        fused += got
+        per = n_sm // k
+        owner = st_b.per_sm_cycles.reshape(k, per).sum(1)
+        gauges = srv.metrics.snapshot()["gauges"]
+        if not (np.array_equal(st_a.per_sm_cycles, st_b.per_sm_cycles)
+                and st_a.makespan_cycles == st_b.makespan_cycles
+                and st_a.busy_cycles == st_b.busy_cycles
+                and st_a.n_devices == 1 and st_b.n_devices == k
+                and np.array_equal(st_b.device_cycles, owner)
+                and gauges.get("drain.shard.n_devices") == k
+                and "drain.shard.device_skew" in gauges
+                and all(f"drain.shard.device.{d}.cycles" in gauges
+                        for d in range(k))):
+            raise AssertionError(f"longtail {policy}: sharded drain differs "
+                                 f"({st_a} vs {st_b})")
+        log(f"[shard-sm] longtail {n_l} {policy} on {n_sm} SMs over {k} "
+            f"shards: per-SM {st_b.per_sm_cycles.tolist()}, makespan "
+            f"{st_b.makespan_cycles}, busy {st_b.busy_cycles} == unsharded; "
+            f"device cycles {st_b.device_cycles.tolist()}, skew "
+            f"{st_b.device_skew:.3f}, fused_sm_run {got} == predicted")
+    # resident memory: no gmem crosses between host and card in the drain
+    srv = rt.RuntimeServer(n_sm=n_sm, resident_gmem=True, shard_sm=True,
+                           sm_devices=["cuda:0"] * k,
+                           metrics=obs.MetricsRegistry(), device="cuda")
+    tickets = {}
+    for i, (name, mod, nn, code, (grid, bd), g0) in enumerate(work):
+        tickets[srv.submit(code, grid, bd, g0.copy(), client=f"t{i}")] = \
+            (mod, nn, g0)
+    w = rt.TRANSFERS.window()
+    results, stats = srv.drain()
+    crossings = w.snapshot()
+    if (crossings["gmem_uploads"], crossings["gmem_syncs"]) != (0, 0) or \
+            crossings["counter_syncs"] != stats.n_sub_batches or \
+            stats.n_devices != k:
+        raise AssertionError(f"resident sharded drain crossed {crossings}")
+    for t, (mod, nn, g0) in tickets.items():
+        if not np.array_equal(results[t].gmem.cpu().numpy()[
+                mod.out_slice(nn)], mod.oracle(g0, nn)):
+            raise AssertionError("resident sharded drain: oracle")
+    log(f"[shard-sm] resident drain over {k} shards: TRANSFERS {crossings}")
+    # the CLI with --shard-sm on the one card: the one-device path
+    base, _ = serve_cli(launches, SERVE_DRAIN, "cli", smi, 8,
+                        prefix="[shard-sm]")
+    flag, _ = serve_cli(launches, SERVE_DRAIN + ["--shard-sm"],
+                        "cli --shard-sm", smi, 8, prefix="[shard-sm]")
+    if flag.n_devices != 1 or not np.array_equal(
+            base.per_sm_cycles, flag.per_sm_cycles) or any(
+            getattr(base, f) != getattr(flag, f) for f in DRAIN_FIELDS):
+        raise AssertionError("--shard-sm on one card differs")
+    log(f"[shard-sm] CLI --shard-sm on {torch.cuda.device_count()} card(s): "
+        f"n_devices 1, accounting == the run without the flag")
+    # walls: matmul n=256 unsharded and at each k, in turns
+    walls = {k: [] for k in (1,) + SHARD_KS}
+    for _ in range(3):
+        for k in (1,) + SHARD_KS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt.execute([specs["matmul"]], n_sm=SHARD_N_SM, shard_sm=k > 1,
+                       sm_devices=["cuda:0"] * k, device="cuda").report()
+            walls[k].append(time.perf_counter() - t0)
+    n_fused = {k: shard_prediction(256, SHARD_N_SM, 8, k)[0]
+               for k in SHARD_KS}
+    n_fused[1] = len(group_bounds(256, SHARD_N_SM, 8))
+    log("[shard-sm] matmul n=256 on 8 SMs, wall of execute + report "
+        "(min/median/max ms over 3 turns): " + ", ".join(
+            f"{'unsharded' if k == 1 else f'k={k}'} {spread(v)} "
+            f"({n_fused[k]} launches)" for k, v in walls.items())
+        + f"; {smi}")
+    log(f"[shard-sm] phase wall {time.perf_counter() - t_phase:.1f} s, "
+        f"fused_sm_run {fused} in the counted sharded runs; {smi}")
+    return fused
+
+
 def in_turns(call, dh, reps):
     """Device ms of ``call(None)`` (the rule's variant) and, at dh 256, of
     ``call("simt")`` too, in turns (tc, simt, simt, tc), the lower reading
@@ -4219,6 +4492,7 @@ def main() -> int:
     audio_fwd, audio_bwd = phase_train_audio(_build.LAUNCHES, smi)
     vlm_prefill_n = phase_serve_vlm(_build.LAUNCHES, smi)
     vlm_fwd, vlm_bwd = phase_train_vlm(_build.LAUNCHES, smi)
+    shard_launches = phase_shard_sm(_build.LAUNCHES, smi)
     kernels.append(time_flash_bwd(train_bwd, bwd_err))
     shapes = time_family_shapes()
     kernels[2]["launches_by_path"] = {
@@ -4264,7 +4538,9 @@ def main() -> int:
                                       "compiled binaries (phase 15)":
                                           compile_fused,
                                       "mixed serving (phase 16)":
-                                          mixed_launches}
+                                          mixed_launches,
+                                      "sharded executor (phase 26)":
+                                          shard_launches}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

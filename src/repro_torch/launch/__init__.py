@@ -1,2 +1,4 @@
-"""Serving entry points of the port: ``steps`` (the step builder) and
-``serve`` (batched prefill, then decode)."""
+"""Entry points of the port: ``steps`` (the step builders), ``serve``
+(batched prefill, then decode), ``train``, the overlay's ``gpgpu_serve``
+and ``gpgpu_compile``, and ``mesh`` (device meshes and the sharding
+rules)."""

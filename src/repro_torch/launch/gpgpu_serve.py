@@ -220,9 +220,9 @@ def drain_workload(work, n_sm: int, tenants: int = 4,
                    metrics: "obs.MetricsRegistry" = None,
                    shard_sm: bool = False,
                    profile: bool = False,
-                   device="cuda"):
+                   device="cuda", sm_devices=None):
     """Submit ``work`` to a fresh server, predecode cache cleared, and
-    drain it.
+    drain it.  ``shard_sm`` and ``sm_devices`` are the server's.
 
     Oracle-checks every ticket; returns ``(server, stats, wall_s)``.
     ``resident=True`` turns on the device-resident gmem pool
@@ -245,7 +245,7 @@ def drain_workload(work, n_sm: int, tenants: int = 4,
                            resident_gmem=resident,
                            metrics=metrics or obs.MetricsRegistry(),
                            shard_sm=shard_sm, profile=profile,
-                           device=device)
+                           device=device, sm_devices=sm_devices)
     jit_before = obs.jit_summary()
     tickets = {}
     t0 = time.perf_counter()
@@ -436,6 +436,11 @@ def print_stats(srv, stats, wall: float, n_sm: int, tenants: int) -> None:
     print(f"[serve] drain makespan {stats.makespan_cycles} cycles "
           f"(busy {stats.busy_cycles}, duration balance "
           f"{stats.duration_balance:.2f})")
+    if stats.n_devices > 1:
+        per_dev = ",".join(str(int(c)) for c in stats.device_cycles)
+        print(f"[serve] sharded over {stats.n_devices} devices "
+              f"({stats.n_sm // stats.n_devices} SMs each): per-device "
+              f"cycles [{per_dev}], skew {stats.device_skew:.2f}")
     # the per-tenant / per-bucket / pool detail is one render of the
     # registry snapshot — the same dict --metrics-out and the BENCH
     # JSON carry, so the CLI cannot drift from the recorded telemetry
@@ -484,10 +489,12 @@ def main(argv=None, pool=None):
                          "packing a window once its CostModel-predicted"
                          " cycles exceed this (bounds drain latency)")
     ap.add_argument("--shard-sm", action="store_true",
-                    help="shard the SM axis across CUDA devices: with one "
-                         "device the single-device path runs (bit-exact); "
-                         "more than one raises until multi-GPU shard_sm "
-                         "is ported")
+                    help="shard the SM axis across the local CUDA "
+                         "devices: device d runs the contiguous SM range "
+                         "[d*n_sm/k, (d+1)*n_sm/k) of every dispatch group "
+                         "(bit-exact with the unsharded run); on one card, "
+                         "or when --n-sm does not divide over the cards, "
+                         "the single-device path runs")
     ap.add_argument("--resident-gmem", action="store_true",
                     help="keep tenant global memory device-resident "
                          "across drain windows (GmemPool); host gmem "

@@ -2,10 +2,12 @@
 
 The JAX package jits each step with shardings over a device mesh, donates
 its buffers, and can pin gradients to their parameters' shardings; its
-``mesh``, the shardings, ``donate``, ``profile`` and ``shard_grads`` are
-levers of several devices, with no counterpart on one card, and are left
-out here (``launch/mesh`` is not ported yet).  The steps run eagerly on
-the parameters' device.
+``mesh``, the shardings (``shardings_for``), ``donate``, ``profile`` and
+``shard_grads`` are levers of several devices and are left out here: the
+rules that say where each tensor goes are ported
+(:mod:`repro_torch.launch.mesh`), applying them on a torch
+``DeviceMesh`` is not yet.  The steps run eagerly on the parameters'
+device.
 
 * :func:`build_train_step`: loss and gradients (``accum`` microbatches
   summed in fp32, as the JAX ``lax.scan`` does), then the AdamW update,

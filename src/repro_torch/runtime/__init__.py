@@ -9,7 +9,9 @@ the multi-tenant serving layer (port of ``repro.runtime``).
 * :mod:`executor` — the multi-SM executor: blocks of one or more launches
   round-robin across ``n_sm`` SMs, one fused-kernel launch a dispatch
   group on the card, per-SM cycle counters out of the executed schedule,
-  host<->device crossings counted in :data:`TRANSFERS`;
+  host<->device crossings counted in :data:`TRANSFERS`; with ``shard_sm``
+  each group runs over the SM mesh of :func:`shard_plan`, one launch a
+  device that holds a real position, bit-exact with the one-device path;
 * :mod:`stream` — streams and events over ``torch.cuda`` events, plus the
   server-routed :class:`QueuedStream`/:class:`QueuedLaunch` futures;
 * :mod:`policy` — the five drain policies, admission control and
@@ -18,9 +20,8 @@ the multi-tenant serving layer (port of ``repro.runtime``).
 * :mod:`service` — :class:`ServingLoop`, the background drain loop;
 * :mod:`loadgen` — seeded open- and closed-loop load generation.
 
-The sharded parts of the JAX package's runtime (``shard_plan``, multi-GPU
-``shard_sm``) are not ported yet.  Every layer emits into
-:mod:`repro_torch.obs`; its globals are re-exported here.
+Every layer emits into :mod:`repro_torch.obs`; its globals are
+re-exported here.
 """
 from .registry import (CODE_BUCKETS, GMEM_MIN_WORDS, SEED_CYCLES_PER_INSTR,
                        WARP_BUCKETS, CostEstimate, CostModel, Footprint,
@@ -29,7 +30,8 @@ from .registry import (CODE_BUCKETS, GMEM_MIN_WORDS, SEED_CYCLES_PER_INSTR,
                        footprint, pad_code)
 from .executor import (BLOCK_SCHED_OVERHEAD, LAUNCH_BUCKETS, TRANSFERS,
                        DeviceGrid, GridResult, LaunchSpec, MultiSMReport,
-                       TransferLog, bucket_launches, execute, run_grid)
+                       TransferLog, bucket_launches, execute, run_grid,
+                       shard_plan)
 from .stream import (Event, Launch, QueuedLaunch, QueuedStream, Runtime,
                      Stream)
 from .policy import (POLICIES, AdmissionError, BalancedDrain, BucketDrain,
@@ -60,5 +62,5 @@ __all__ = [
     "bucket_gmem_len",
     "bucket_launches", "bucket_warps", "build_arrivals", "execute",
     "footprint", "make_policy", "pad_code", "run_closed_loop",
-    "run_grid", "run_open_loop",
+    "run_grid", "run_open_loop", "shard_plan",
 ]

@@ -33,7 +33,15 @@ is no jit-shape cache to feed, so the SM width is not padded to a bucket
 unless the caller asks (``pad_warps``), and a group's padding positions
 are not run; the per-SM accumulator is int64 rather than split hi/lo
 int32 lanes, so it has no blocks-per-SM bound.
-Sharding across devices (``shard_sm`` on more than one device) waits.
+
+``execute(shard_sm=True)`` runs each dispatch group over the SM mesh of
+:func:`shard_plan` (:func:`run_groups_sharded`): device ``d`` of the mesh
+owns the contiguous SM range ``[d·n_sm/k, (d+1)·n_sm/k)``, each shard
+with a real position makes one run of its positions, write sets merge by
+last writer in schedule order (on each shard, then across shards on the
+home device), and the result is bit-equal to the one-device path.  The
+mesh may name one device several times (``sm_devices=["cuda:0"] * 4``),
+so one card, or the CPU, runs every shard.
 
 Host<->device crossings are counted at the reference's three seams
 (``transfers.*`` in :data:`repro_torch.obs.METRICS`, viewed through
@@ -47,6 +55,7 @@ bookkeeping and add no synchronizing call.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -58,6 +67,7 @@ from ..core.pipeline import MachineConfig
 from ..core.pipeline.fused import (C_CYCLES, C_STEPS, counters_from_rows,
                                    fused_sm_run, predecode, staged_run)
 from ..core.pipeline.state import as_int32, on_device, resolve_device
+from ..launch.mesh import make_sm_mesh
 from ..obs import METRICS, TRACER, jit_call
 from . import registry as reg
 from .registry import Module, ModuleRegistry
@@ -338,21 +348,28 @@ class Schedule(NamedTuple):
     records: Optional[torch.Tensor]   # (L, C, 4) int32, or None
 
 
-def group_bounds(n_blocks: int, n_sm: int,
-                 chunk: int) -> List[Tuple[int, int]]:
-    """The dispatch groups of ``n_blocks`` positions as (lo, hi) bounds.
+def dispatch_groups(n_blocks: int, n_sm: int,
+                    chunk: int) -> List[Tuple[int, int, int]]:
+    """The dispatch groups of ``n_blocks`` positions as (lo, hi, spd).
     Position p runs on SM ``p % n_sm`` in super-step ``p // n_sm``; a group
-    spans ``spd`` super-steps, ``chunk // n_sm`` at most, ``spd`` halving
-    while the rest still fits."""
+    spans ``spd`` super-steps (``spd * n_sm`` slots, the real positions
+    ``[lo, hi)`` first), ``chunk // n_sm`` at most, ``spd`` halving while
+    the rest still fits."""
     spd_max, lo, out = max(1, chunk // n_sm), 0, []
     while lo < n_blocks:
         spd = spd_max
         while spd // 2 >= -(-(n_blocks - lo) // n_sm):
             spd //= 2
         hi = min(lo + spd * n_sm, n_blocks)
-        out.append((lo, hi))
+        out.append((lo, hi, spd))
         lo = hi
     return out
+
+
+def group_bounds(n_blocks: int, n_sm: int,
+                 chunk: int) -> List[Tuple[int, int]]:
+    """The (lo, hi) bounds of :func:`dispatch_groups`."""
+    return [(lo, hi) for lo, hi, _ in dispatch_groups(n_blocks, n_sm, chunk)]
 
 
 def run_groups(cfg: MachineConfig, n_warps: int, n_sm: int, chunk: int,
@@ -388,11 +405,228 @@ def run_groups(cfg: MachineConfig, n_warps: int, n_sm: int, chunk: int,
     return torch.cat(ctr_groups), sm_cyc
 
 
+def shard_plan(n_sm: int, devices: Optional[Sequence] = None):
+    """The SM mesh the sharded executor path runs over, or ``None`` when
+    sharding is inactive: a mesh of one entry, or ``n_sm`` not divisible
+    by its size (each device must own a whole number of SMs for placement
+    to match attribution).  ``devices`` is :func:`make_sm_mesh`'s: every
+    local CUDA device by default, or the caller's list, which may repeat
+    a device.
+
+    **Placement contract:** schedule position ``p`` is attributed to SM
+    ``p % n_sm``, and device ``d`` of the mesh owns the contiguous SM range
+    ``[d * n_sm/size, (d+1) * n_sm/size)``; each dispatch group is
+    permuted to SM-major order (:func:`_sm_major_perm`), so every SM's
+    blocks, and its cycle counter, live on exactly one device.
+    """
+    mesh = make_sm_mesh(n_sm, devices)
+    n_dev = mesh.devices.size
+    if n_dev <= 1 or n_sm % n_dev:
+        return None
+    return mesh
+
+
+def _sm_major_perm(width: int, n_sm: int) -> np.ndarray:
+    """Permutation from SM-major slot ``q`` to schedule position ``p``.
+
+    ``q = s * spd + j  ->  p = j * n_sm + s`` (``spd`` super-steps per
+    dispatch): SM ``s``'s blocks become contiguous, so splitting the slot
+    axis in equal parts puts each SM's blocks on its owning device.
+    ``np.argsort`` of this is the inverse (position -> slot).
+    """
+    spd = width // n_sm
+    return np.arange(width).reshape(spd, n_sm).T.ravel()
+
+
+def _pin(device) -> torch.device:
+    """``device`` with a CUDA index (``cuda`` names the current card)."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _on(device: torch.device):
+    """Make ``device`` current for CUDA launches (a no-op off the card)."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``: itself when already there, else a copy, which
+    is asynchronous onto a card (a copy to the host waits for its data)."""
+    if x.device == device:
+        return x
+    return x.to(device, non_blocking=device.type == "cuda")
+
+
+def sm_devices_for(sm_devices: Optional[Sequence], device) -> Optional[list]:
+    """The devices a ``shard_sm`` run may spread over: the caller's list,
+    else every local card when the home ``device`` is a card (``None``,
+    :func:`make_sm_mesh`'s default), else the home device alone."""
+    if sm_devices is not None:
+        return list(sm_devices)
+    return None if torch.device(device).type == "cuda" else [device]
+
+
+def shard_slots(n_blocks: int, n_sm: int, chunk: int, n_dev: int):
+    """Host plan of the sharded group loop over ``n_dev`` devices.
+
+    Returns ``(order, local_sm, groups)``: ``order`` the schedule
+    positions in shard-slot order (each group in SM-major order, split by
+    owning device, padding slots left out), ``local_sm`` each one's SM
+    within its device's range, and per dispatch group ``(lo, hi, spd,
+    runs)`` with ``runs`` a list of ``(device index, a, b)``: the slice
+    ``order[a:b]`` of every device that holds at least one real position
+    of the group."""
+    per = n_sm // n_dev
+    order, local_sm, groups, at = [], [], [], 0
+    for lo, hi, spd in dispatch_groups(n_blocks, n_sm, chunk):
+        perm = _sm_major_perm(spd * n_sm, n_sm)
+        sm = np.arange(spd * n_sm) // spd            # the SM of slot q
+        runs = []
+        for d in range(n_dev):
+            q = np.arange(d * per * spd, (d + 1) * per * spd)
+            q = q[perm[q] < hi - lo]                 # real positions only
+            if len(q):
+                runs.append((d, at, at + len(q)))
+                order.append(lo + perm[q])
+                local_sm.append(sm[q] - d * per)
+                at += len(q)
+        groups.append((lo, hi, spd, runs))
+    return np.concatenate(order), np.concatenate(local_sm), groups
+
+
+def _last_writer(mem, wrt, launch_ids, positions, shape):
+    """Per (launch, word), the highest schedule position of ``positions``
+    that wrote (-1 where none did) and its value, over one shard's run."""
+    last = torch.full(shape, -1, dtype=torch.int32, device=mem.device)
+    val = torch.zeros(shape, dtype=torch.int32, device=mem.device)
+    for i in np.argsort(positions):
+        li = int(launch_ids[i])
+        last[li].masked_fill_(wrt[i], int(positions[i]))
+        val[li] = torch.where(wrt[i], mem[i], val[li])
+    return last, val
+
+
+class _Replica(NamedTuple):
+    """What a device's shards read, on that device: the programs, their
+    records (or None), and the shard-slot geometry, launch ids and local
+    SM ids of every position."""
+    codes: torch.Tensor
+    records: Optional[torch.Tensor]
+    geom_dev: torch.Tensor
+    launch_ids: torch.Tensor
+    local_sm: torch.Tensor
+
+
+class ShardSchedule(NamedTuple):
+    """The dispatch schedule of one sharded :func:`execute`, placed once:
+    each shard's device, the positions in shard-slot order
+    (:func:`shard_slots`) with their host geometry rows, the groups' runs,
+    one :class:`_Replica` a distinct device, and the inverse permutation
+    on the home device."""
+    devices: List[torch.device]       # shard -> its device
+    order: np.ndarray                 # (n_blocks,) positions, slot order
+    geom: np.ndarray                  # (n_blocks, 8) rows, slot order
+    groups: list                      # (lo, hi, spd, runs) a group
+    replicas: dict                    # device -> _Replica
+    inv: torch.Tensor                 # (n_blocks,) slot of each position
+
+
+def place_sharded(geom: np.ndarray, n_sm: int, chunk: int, mesh,
+                  codes: torch.Tensor, records: Optional[torch.Tensor],
+                  home: torch.device) -> ShardSchedule:
+    """Plan the groups over ``mesh`` and copy what the shards read to each
+    distinct device once: the programs ``codes`` (on the home device), the
+    host ``records`` (the fused backend on a card only) and the geometry
+    ``geom`` of the positions in shard-slot order."""
+    devs = [_pin(d) for d in mesh.devices.flat]
+    order, local_sm, groups = shard_slots(len(geom), n_sm, chunk, len(devs))
+    geom, n = geom[order], len(order)
+    host = np.concatenate([geom.ravel(), geom[:, 0], local_sm]) \
+        .astype(np.int32)
+    reps = {}
+    for d in dict.fromkeys(devs):
+        with _on(d):
+            buf = torch.as_tensor(host, device=d)
+            reps[d] = _Replica(
+                codes=_to(codes, d),
+                records=(records.to(d) if records is not None
+                         and d.type == "cuda" else None),
+                geom_dev=buf[:8 * n].view(n, 8), launch_ids=buf[8 * n:9 * n],
+                local_sm=buf[9 * n:])
+    return ShardSchedule(devs, order, geom, groups, reps,
+                         torch.as_tensor(np.argsort(order), device=home))
+
+
+def run_groups_sharded(cfg: MachineConfig, n_warps: int, n_sm: int,
+                       sched: ShardSchedule, gmems: torch.Tensor):
+    """The dispatch-group loop over the shards of ``sched``, with
+    :func:`run_groups`'s results.
+
+    For each group, each device with a real position snapshots its
+    positions' gmem as the group started, runs them (one
+    :func:`fused_sm_run` launch on the card, :func:`staged_run` elsewhere),
+    keeps per (launch, word) the highest position that wrote and its
+    value, and adds its SMs' cycles to its own int64 counters.  Across
+    devices, on the home device (``gmems``'), the largest position wins;
+    counter rows return to schedule order through the inverse
+    permutation.  Copies between devices are asynchronous and a shard on
+    the home device makes none, so the loop makes no synchronizing call
+    on the card."""
+    home, devs, geom, order = gmems.device, sched.devices, sched.geom, \
+        sched.order
+    n_dev = len(devs)
+    sm_cyc = [torch.zeros(n_sm // n_dev, dtype=torch.int64, device=d)
+              for d in devs]
+    pieces = []
+    bucket = (f"c{sched.replicas[devs[0]].codes.shape[1]}g{gmems.shape[1]}"
+              f"w{n_warps}sm{n_sm}x{n_dev}dev")
+    for lo, hi, spd, runs in sched.groups:
+        METRICS.counter("shard.dispatch_groups").inc()
+        with TRACER.span("device-execute", bucket=bucket, width=spd * n_sm,
+                         n_blocks=hi - lo, n_sm=n_sm, n_devices=n_dev):
+            start, best, win = {}, None, None
+            for s, a, b in runs:
+                d = devs[s]
+                rep = sched.replicas[d]
+                with _on(d):
+                    if d not in start:          # the group's starting gmem
+                        start[d] = _to(gmems, d)
+                    snap = start[d].index_select(0, rep.launch_ids[a:b])
+                    if rep.records is None:
+                        mem, wrt, ctr = staged_run(cfg, n_warps, rep.codes,
+                                                   geom[a:b], snap)
+                    else:
+                        mem, wrt, ctr = fused_sm_run(
+                            cfg, n_warps, rep.codes, geom[a:b], snap,
+                            records=rep.records,
+                            geom_dev=rep.geom_dev[a:b])
+                    last, val = _last_writer(mem, wrt, geom[a:b, 0],
+                                             order[a:b], gmems.shape)
+                    cost = ctr[:, C_CYCLES].to(torch.int64) \
+                        + BLOCK_SCHED_OVERHEAD
+                    sm_cyc[s].index_add_(0, rep.local_sm[a:b], cost)
+                pieces.append(_to(ctr, home))
+                # cross-shard combine: the largest writing position wins
+                last, val = _to(last, home), _to(val, home)
+                if best is None:
+                    best, win = last, val
+                else:
+                    win = torch.where(last > best, val, win)
+                    best = torch.maximum(best, last)
+            gmems.copy_(torch.where(best >= 0, win, gmems))
+    return (torch.cat(pieces).index_select(0, sched.inv),
+            torch.cat([_to(c, home) for c in sm_cyc]))
+
+
 def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
             cfg: MachineConfig = MachineConfig(), chunk: int = 8,
             pad_warps: Optional[int] = None,
             registry: Optional[ModuleRegistry] = None,
-            shard_sm: bool = False, device="cuda") -> DeviceGrid:
+            shard_sm: bool = False, sm_devices: Optional[Sequence] = None,
+            device="cuda") -> DeviceGrid:
     """Execute the blocks of ``launches`` round-robin across ``n_sm`` SMs.
 
     Blocks may not communicate (true of the paper's benchmarks); write
@@ -402,18 +636,18 @@ def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
     (the serving path pads all tenants to one width; warps beyond a
     launch's threads start FINISHED, so counters stay exact); fewer than
     the widest launch needs raises.  ``registry`` replaces the default
-    module registry.  ``shard_sm=True`` runs this single-device path
-    where only one device exists, as the JAX package falls back to it;
-    with more than one CUDA device it raises (not yet ported).  Runs on
-    the card unless ``device="cpu"``; without a card it raises.
+    module registry.  ``shard_sm=True`` runs each dispatch group over the
+    SM mesh of :func:`shard_plan` of ``sm_devices`` (default: every local
+    card when ``device`` is a card, else ``device`` alone), bit-exact with
+    the one-device path, which runs instead when the plan is ``None``, as
+    the JAX package falls back to it.  Results live on ``device``.  Runs
+    on the card unless ``device="cpu"``; without a card it raises.
     """
     dev = resolve_device(device)
     if not launches:
         raise ValueError("execute() needs at least one launch")
-    if shard_sm and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "execute(shard_sm=True) across several CUDA devices is not yet "
-            "ported (ROADMAP queue 1 item 9, multi-GPU shard_sm)")
+    mesh = shard_plan(n_sm, sm_devices_for(sm_devices, dev)) \
+        if shard_sm else None
     if registry is None:       # an empty registry is falsy: test for None
         registry = _default_registry
     mods = [registry.as_module(l.code) for l in launches]
@@ -460,23 +694,35 @@ def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
     # everything the group loop reads goes to the device once, here: the
     # programs, their records (predecoded on the host, cached), and one
     # buffer of the geometry rows, launch ids and SM ids of the positions
+    # (the sharded loop uploads its own, in shard-slot order)
     codes_d = torch.as_tensor(codes, device=dev)
-    buf = torch.as_tensor(np.concatenate(
-        [geom.ravel(), geom[:, 0], np.arange(n_blocks) % n_sm]
-    ).astype(np.int32), device=dev)
     # build attribution: a miss is a call that predecoded new programs or
     # built the kernel library, charged to the footprint bucket
-    with jit_call("executor.run_positions", _records,
-                  bucket=f"c{code_len}g{g_width}w{n_warps}sm{n_sm}"):
-        sched = Schedule(
-            geom=geom, geom_dev=buf[:8 * n_blocks].view(n_blocks, 8),
-            launch_ids=buf[8 * n_blocks:9 * n_blocks],
-            sm_ids=buf[9 * n_blocks:],
-            records=(_records(codes.tobytes(), codes.shape, cfg).to(dev)
-                     if cfg.execute_backend == "cuda_fused"
-                     and dev.type == "cuda" else None))
-        ctr, sm_cyc = run_groups(cfg, n_warps, n_sm, chunk, codes_d, sched,
-                                 gmems)
+    bucket = f"c{code_len}g{g_width}w{n_warps}sm{n_sm}"
+    site = "executor.run_positions"
+    if mesh is not None:
+        bucket += f"x{mesh.devices.size}dev"
+        site += "_sharded"
+    with jit_call(site, _records, bucket=bucket):
+        records = (_records(codes.tobytes(), codes.shape, cfg)
+                   if cfg.execute_backend == "cuda_fused"
+                   and dev.type == "cuda" else None)
+        if mesh is not None:
+            placed = place_sharded(geom, n_sm, chunk, mesh, codes_d,
+                                   records, gmems.device)
+            ctr, sm_cyc = run_groups_sharded(cfg, n_warps, n_sm, placed,
+                                             gmems)
+        else:
+            buf = torch.as_tensor(np.concatenate(
+                [geom.ravel(), geom[:, 0], np.arange(n_blocks) % n_sm]
+            ).astype(np.int32), device=dev)
+            sched = Schedule(
+                geom=geom, geom_dev=buf[:8 * n_blocks].view(n_blocks, 8),
+                launch_ids=buf[8 * n_blocks:9 * n_blocks],
+                sm_ids=buf[9 * n_blocks:],
+                records=None if records is None else records.to(dev))
+            ctr, sm_cyc = run_groups(cfg, n_warps, n_sm, chunk, codes_d,
+                                     sched, gmems)
     return DeviceGrid(gmems=gmems, ctr=ctr, sm_cyc=sm_cyc,
                       n_sm=n_sm, n_steps=-(-n_blocks // n_sm),
                       launch_offsets=offsets, launch_blocks=nblocks,

@@ -116,6 +116,24 @@ class DrainStats(NamedTuple):
     #                              (model units; 0.0 unless profiling is on)
 
     @property
+    def device_cycles(self) -> np.ndarray:
+        """Executed cycles per *device* under the sharded placement
+        contract: device ``d`` owns the contiguous SM range
+        ``[d * n_sm/n_devices, (d+1) * n_sm/n_devices)`` (see
+        ``executor.shard_plan``), so per-device load is the sum of its
+        SMs' counters.  With ``n_devices == 1`` this is the total."""
+        return self.per_sm_cycles.reshape(self.n_devices, -1).sum(1)
+
+    @property
+    def device_skew(self) -> float:
+        """Busiest device over mean device load (1.0 = perfectly even;
+        0.0 for an empty drain).  The cross-device balance analogue of
+        ``duration_balance``."""
+        dev = self.device_cycles
+        return safe_div(int(dev.max()), float(dev.mean())) if dev.size \
+            else 0.0
+
+    @property
     def duration_balance(self) -> float:
         """Fraction of drain SM-time spent on real blocks:
         ``busy_cycles / (n_sm * makespan_cycles)`` — the duration
@@ -173,7 +191,7 @@ class RuntimeServer:
                  tracer: Optional[Tracer] = None,
                  shard_sm: bool = False,
                  profile: bool = False,
-                 device="cuda"):
+                 device="cuda", sm_devices=None):
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             # pin "the current card" now: the serving loop's thread has
@@ -182,19 +200,17 @@ class RuntimeServer:
         #: the device every dispatch group, pooled memory and queued
         #: stream of this server lives on
         self.device = dev
-        if shard_sm and dev.type == "cuda" and \
-                torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "RuntimeServer(shard_sm=True) across several CUDA devices "
-                "is not yet ported (ROADMAP queue 1 item 9, multi-GPU "
-                "shard_sm)")
         self.n_sm = n_sm
         self.cfg = cfg
-        #: device-parallel SM execution: on one device the executor runs
-        #: its single-device path, as the JAX package falls back to it;
-        #: ``n_devices`` is the devices the SM axis spans (1)
+        #: device-parallel SM execution: every dispatch group runs over
+        #: the SM mesh of ``executor.shard_plan`` (``sm_devices``, default
+        #: every local card, or the home device off the card), falling
+        #: back to the single-device path when no placement exists, as
+        #: the JAX package does.  ``n_devices`` is the resolved mesh size.
         self.shard_sm = shard_sm
-        self.n_devices = 1
+        self.sm_devices = ex.sm_devices_for(sm_devices, dev)
+        plan = ex.shard_plan(n_sm, self.sm_devices) if shard_sm else None
+        self.n_devices = int(plan.devices.size) if plan is not None else 1
         #: observability sinks — default to the process globals.  The
         #: server emits unconditionally; a disabled registry / tracer
         #: reduces every emission to a no-op (and never a device sync).
@@ -822,6 +838,7 @@ class RuntimeServer:
                                         pad_warps=sb.pad_warps,
                                         registry=self.registry,
                                         shard_sm=self.shard_sm,
+                                        sm_devices=self.sm_devices,
                                         device=self.device)
                         sub_results = dg.to_results(
                             host_gmem=not self.resident_gmem)
@@ -999,6 +1016,11 @@ class RuntimeServer:
                        eu_per_s=round(
                            safe_div(stats.energy_eu, stats.wall_s), 3))
         tr.counter("shed_rate", shed=stats.n_shed)
+        if stats.n_devices > 1:
+            g("drain.shard.n_devices").set(stats.n_devices)
+            g("drain.shard.device_skew").set(round(stats.device_skew, 6))
+            for d, c in enumerate(stats.device_cycles):
+                g(f"drain.shard.device.{d}.cycles").set(int(c))
         for t, ts in (stats.by_tenant or {}).items():
             g(f"drain.tenant.{t}.launches").set(ts.launches)
             g(f"drain.tenant.{t}.blocks").set(ts.blocks)

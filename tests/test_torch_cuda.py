@@ -250,6 +250,83 @@ def test_group_loop_makes_no_synchronizing_call(card, monkeypatch):
                                       np.asarray(getattr(want, f)), f)
 
 
+def _sharded_specs(n=32):
+    """The five paper programs at ``n`` and a write-conflict kernel whose
+    7 blocks write the same 32 words (the last writer must win)."""
+    from repro_torch.core import asm
+    specs = []
+    for i, name in enumerate(sorted(ALL)):
+        mod = ALL[name]
+        specs.append(scheduler.LaunchSpec(
+            mod.build(n), *mod.launch(n),
+            mod.make_gmem(np.random.default_rng(40 + i), n)))
+    p = asm.Program("conflict100")
+    p.s2r("r0", isa.SR_TID)
+    p.s2r("r1", isa.SR_CTA)
+    p.iadd("r1", "r1", 100)
+    p.stg("r0", "r1", 64)
+    p.exit()
+    specs.append(scheduler.LaunchSpec(p.finish(), (7, 1), (32, 1),
+                                      np.zeros(128, np.int32)))
+    return specs
+
+
+def _same_grids(got, want):
+    for g, w in zip(got.to_results(), want.to_results()):
+        for f in w._fields:
+            np.testing.assert_array_equal(np.asarray(getattr(g, f)),
+                                          np.asarray(getattr(w, f)), f)
+    a, b = got.report(), want.report()
+    np.testing.assert_array_equal(a.per_sm_cycles, b.per_sm_cycles)
+    assert (a.n_steps, a.n_blocks) == (b.n_steps, b.n_blocks)
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_sharded_execute_over_one_card_bit_exact(card, k, monkeypatch):
+    """execute(shard_sm=True) over ``["cuda:0"] * k`` on 8 SMs: bit-equal
+    to the unsharded run on the card, one fused_sm_run launch a shard
+    with a real position, and no synchronizing call in the group loop."""
+    specs = _sharded_specs()
+    want = scheduler.execute(specs, n_sm=8, device=card)
+    real = executor.run_groups_sharded
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(executor, "run_groups_sharded", strict)
+    n_blocks = want.report().n_blocks
+    _, _, groups = executor.shard_slots(n_blocks, 8, 8, k)
+    before = executor.METRICS.counter("shard.dispatch_groups").value
+    _build.LAUNCHES.clear()
+    got = scheduler.execute(specs, n_sm=8, shard_sm=True,
+                            sm_devices=["cuda:0"] * k, device=card)
+    assert dict(_build.LAUNCHES) == {
+        "fused_sm_run": sum(len(runs) for *_, runs in groups)}
+    assert executor.METRICS.counter("shard.dispatch_groups").value - \
+        before == len(groups)
+    _same_grids(got, want)
+    gmem = got.to_results()[-1].gmem
+    assert (gmem[64:96] == 106).all() and not gmem[:64].any()
+
+
+def test_sharded_home_card_outside_the_mesh(card):
+    """Home device cuda:1, the mesh on cuda:0: the merged gmem lives on the
+    home device, bit-equal to the unsharded run there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    specs = _sharded_specs()
+    home = torch.device("cuda", 1)
+    want = scheduler.execute(specs, n_sm=4, device=home)
+    got = scheduler.execute(specs, n_sm=4, shard_sm=True,
+                            sm_devices=["cuda:0"] * 4, device=home)
+    assert got.to_results(host_gmem=False)[0].gmem.device == home
+    _same_grids(got, want)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     z = torch.zeros((2, 32), dtype=torch.int32, device=card)
     with pytest.raises(ValueError):

@@ -52,7 +52,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.train", "repro_torch.models.mamba2",
             "repro_torch.models.hybrid", "repro_torch.configs.llama3p2_3b",
             "repro_torch.configs.yi_6b", "repro_torch.configs.mamba2_130m",
-            "repro_torch.configs.zamba2_1p2b"} <= set(mods)
+            "repro_torch.configs.zamba2_1p2b",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -1,7 +1,8 @@
 """The executor's call and report surface against the JAX package:
 ``execute(pad_warps=, registry=, shard_sm=True)`` on one device (held to
 the JAX package's unsharded path: its sharded path fails on the installed
-jax wherever several host devices are forced), the four
+jax wherever several host devices are forced; the port's sharded path is
+in ``tests/test_torch_sharding.py``), the four
 ``MultiSMReport`` properties (``kernel_cycles``, ``busy_cycles``,
 ``padded_gmem_words``, ``occupancy``), ``device_gmem_words`` with the
 launch count padded to its bucket, and ``DeviceGrid.to_results(host_gmem=
@@ -105,13 +106,27 @@ def test_too_few_pad_warps_raise():
                     pad_warps=7, cfg=JAX)
 
 
-def test_shard_sm_on_several_cards_is_not_ported(monkeypatch):
+def test_shard_sm_without_sm_devices_runs_one_device_path(monkeypatch):
+    """``shard_sm=True`` with no ``sm_devices`` on the CPU spreads over the
+    home device alone: the one-device path runs (no sharded group), bit
+    for bit, whatever the card count; the server reports one device."""
+    from repro_torch import runtime as rt
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     specs = [scheduler.LaunchSpec(*s) for s in _specs(MIXES["one"])]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        scheduler.execute(specs, n_sm=2, shard_sm=True, device="cpu")
-    dg = scheduler.execute(specs, n_sm=2, device="cpu")   # shard_sm=False
-    assert dg.report().n_blocks == 4
+    groups = rt.METRICS.counter("shard.dispatch_groups")
+    before = groups.value
+    dg = scheduler.execute(specs, n_sm=2, shard_sm=True, device="cpu")
+    assert groups.value == before
+    base = scheduler.execute(specs, n_sm=2, device="cpu")  # shard_sm=False
+    assert dg.report().n_blocks == base.report().n_blocks == 4
+    np.testing.assert_array_equal(dg.report().per_sm_cycles,
+                                  base.report().per_sm_cycles)
+    for got, want in zip(dg.to_results(), base.to_results()):
+        for f in FIELDS:
+            np.testing.assert_array_equal(np.asarray(getattr(got, f)),
+                                          np.asarray(getattr(want, f)))
+    srv = rt.RuntimeServer(n_sm=2, shard_sm=True, device="cpu")
+    assert srv.shard_sm and srv.n_devices == 1
 
 
 def test_to_results_host_gmem_false_keeps_tensors():
