@@ -247,7 +247,25 @@ Phases, each printed as it ends:
    with no gmem crossing; the serving CLI with ``--shard-sm`` on the one
    card (one device, equal to the run without the flag); and the walls of
    matmul n=256 unsharded and at each k, in turns.  Copies between
-   distinct cards are not exercised: one card.
+   distinct cards are not exercised: one card;
+27. the LM steps on a torch ``DeviceMesh`` (``[mesh-lm]``): a world-size-1
+   NCCL process group (a ``FileStore`` in a temporary directory) and a
+   (1, 1) ``("data", "model")`` mesh over ``cuda:0``; qwen3-0.6b at full
+   width through ``build_serve_step(mesh=...)``: a prefill of 4 x 512 and
+   8 decode steps under ``profile="tp"``, the prefill again under
+   ``"seq"``, every next token and KV cache bit-equal to the same steps
+   without a mesh, 28 flash launches a prefill; three
+   ``build_train_step(mesh=..., donate=True, shard_grads=True)`` steps of
+   8 x 512, losses, gradient norms and parameters bit-equal to the
+   unsharded steps', 28 + 28 flash forwards and 28 backwards a step; the
+   walls of the sharded and unsharded serve steps in turns and of the
+   train steps; paligemma-3b's peak memory over one train step with
+   ``donate`` off and on; ``launch.hloanalysis.analyze`` of the unsharded
+   qwen3 train step (8 x 512) and prefill (4 x 512), its compute and
+   memory times at the H100 SXM datasheet rates beside the measured wall;
+   and ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape
+   train_4k --mesh single`` in a subprocess (the production mesh over 256
+   fake ranks on the host CPU), its record ``ok`` and printed.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Times are on the card named in the
@@ -4429,6 +4447,256 @@ def time_family_shapes():
     return out
 
 
+# ------------------------------------------------------------ phase 27
+#: phase 27's serving: qwen3-0.6b's prefill of 4 x 512 and 8 decode steps;
+#: training: 3 steps of 8 x 512
+MESH_B, MESH_P, MESH_DECODES, MESH_TRAIN_STEPS = 4, 512, 8, 3
+
+
+def tree_max_diff(a, b):
+    """The largest absolute difference over two trees of tensors (a
+    DTensor compared by its full value)."""
+    from repro_torch import tree as T
+    return max((x.full_tensor() if hasattr(x, "full_tensor") else x)
+               .float().sub(y.float()).abs().max().item()
+               for x, y in zip(T.leaves(a), T.leaves(b)))
+
+
+def walls_in_turns(runs, order):
+    """Each run's walls (ms) when called in ``order`` (names of ``runs``),
+    each call ended by a device sync."""
+    walls = {k: [] for k in runs}
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def roofline(cost, wall_ms):
+    """(compute_t, memory_t, share) of one analysed step at the H100 SXM
+    datasheet rates (``launch.dryrun``): the share is the larger bound
+    over the measured wall."""
+    from repro_torch.launch import dryrun
+    compute_t = cost.flops / dryrun.PEAK_FLOPS
+    memory_t = cost.bytes / dryrun.HBM_BW
+    return compute_t, memory_t, max(compute_t, memory_t) * 1e3 / wall_ms
+
+
+def phase_mesh_lm(launches, smi):
+    """``[mesh-lm]`` (docstring item 27).  Returns the flash forward
+    launches of the sharded serve runs, and the forward and backward
+    launches of the sharded train steps."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import configs, tree as T
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import hloanalysis, mesh as M
+    from repro_torch.launch.steps import build_serve_step, build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, opt_init
+    t_phase = time.perf_counter()
+    # the dry-run traces on the host's CPU: start it first, read it last
+    dry_dir = ROOT / "build" / "dryrun"
+    cached = dry_dir / "qwen3_0p6b__train_4k__single.json"
+    if cached.exists():
+        cached.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-0.6b", "--shape", "train_4k", "--mesh", "single", "--out",
+         str(dry_dir)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
+    spec = configs.get("qwen3-0.6b")
+    cfg, L, B, P = spec.cfg, spec.cfg.n_layers, MESH_B, MESH_P
+    store = tempfile.TemporaryDirectory(prefix="mesh_lm_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store.name}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        dm = M.device_mesh(M.make_debug_mesh(1))
+        log(f"[mesh-lm] NCCL process group of 1 rank, DeviceMesh {dm} "
+            f"(data 1, model 1) over cuda:0")
+        params = api.init(torch.Generator(device="cuda").manual_seed(0),
+                          spec)
+        rng = np.random.default_rng(27)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
+                                 device="cuda")
+        plain_step = build_serve_step(spec)
+        steps = {"tp": build_serve_step(spec, mesh=dm, profile="tp"),
+                 "seq": build_serve_step(spec, mesh=dm, profile="seq")}
+
+        def serve(step, decodes):
+            """The prefill, then ``decodes`` greedy steps: (tokens of each
+            step, final state, flash launches, walls ms)."""
+            state = api.decode_state(spec, B, P + MESH_DECODES)
+            launches.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, state = step(params, state, prompt, 0)
+            torch.cuda.synchronize()
+            walls = [(time.perf_counter() - t0) * 1e3]
+            toks = [tok]
+            for i in range(decodes):
+                t0 = time.perf_counter()
+                tok, state = step(params, state, tok[:, None], P + i)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                toks.append(tok)
+            return toks, state, dict(launches), walls
+
+        ref = serve(plain_step, MESH_DECODES)
+        serve_launches = 0
+        for profile, decodes in (("tp", MESH_DECODES), ("seq", 0)):
+            toks, state, counts, _ = serve(steps[profile], decodes)
+            if counts != {"flash_attention": L}:
+                raise AssertionError(f"mesh serve {profile}: launches "
+                                     f"{counts}, want {L} flash_attention")
+            serve_launches += counts["flash_attention"]
+            same = all(torch.equal(a, b) for a, b in zip(toks, ref[0]))
+            diff = tree_max_diff(state, ref[1]) if decodes else \
+                max(tree_max_diff([c[:, :, :P]], [r[:, :, :P]])
+                    for c, r in zip(state["kv"], ref[1]["kv"]))
+            if not same or diff != 0:
+                raise AssertionError(f"mesh serve {profile}: tokens equal "
+                                     f"{same}, caches max diff {diff}")
+            log(f"[mesh-lm] sharded serve profile={profile}: prefill "
+                f"{B} x {P} and {decodes} decode steps, every next token and "
+                f"the KV caches bit-equal to the unsharded steps; "
+                f"{counts['flash_attention']} flash launches a prefill")
+            del state
+        # walls in turns: unsharded, sharded, sharded, unsharded
+        walls = {}
+        for name in ("plain", "tp", "tp", "plain"):
+            w = serve(plain_step if name == "plain" else steps["tp"],
+                      MESH_DECODES)[3]
+            walls.setdefault(name, []).append(w)
+        pre = {k: [w[0] for w in v] for k, v in walls.items()}
+        dec = {k: [sum(w[1:]) / MESH_DECODES for w in v]
+               for k, v in walls.items()}
+        log(f"[mesh-lm] walls in turns (plain, tp, tp, plain): prefill "
+            f"plain {pre['plain']} ms, sharded {pre['tp']} ms; decode step "
+            f"plain {[round(x, 3) for x in dec['plain']]} ms, sharded "
+            f"{[round(x, 3) for x in dec['tp']]} ms (DTensor dispatch on the "
+            f"host); {smi}")
+
+        # training: 3 steps, donate and shard_grads, against the plain step
+        opt_cfg = OptConfig()
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                      global_batch=TRAIN_B, seed=0),
+                           device="cuda")
+        batches = [data.batch(i) for i in range(MESH_TRAIN_STEPS)]
+        plain_train = build_train_step(spec, opt_cfg)
+        mesh_train = build_train_step(spec, opt_cfg, mesh=dm, donate=True,
+                                      shard_grads=True)
+        runs = {}
+        for name, step in (("plain", plain_train), ("mesh", mesh_train)):
+            p = T.tree_map(torch.clone, params)
+            o = opt_init(p, opt_cfg)
+            stats, walls, counts = [], [], []
+            for b in batches:
+                launches.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, o, st = step(p, o, b)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                counts.append(dict(launches))
+                stats.append((st["loss"].item(), st["grad_norm"].item()))
+            runs[name] = (p, stats, walls, counts)
+        want = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+        if any(c != want for c in runs["mesh"][3]):
+            raise AssertionError(f"mesh train: launches {runs['mesh'][3]}, "
+                                 f"want {want} a step")
+        pdiff = tree_max_diff(runs["mesh"][0], runs["plain"][0])
+        if runs["mesh"][1] != runs["plain"][1] or pdiff != 0:
+            raise AssertionError(f"mesh train: stats {runs['mesh'][1]} vs "
+                                 f"{runs['plain'][1]}, params max diff "
+                                 f"{pdiff}")
+        log(f"[mesh-lm] sharded train (donate, shard_grads, tp): "
+            f"{MESH_TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S}, losses and "
+            f"grad norms {runs['mesh'][1]} bit-equal to the unsharded "
+            f"steps', parameters bit-equal; {want} launches a step; walls "
+            f"sharded {[round(w, 1) for w in runs['mesh'][2]]} ms, "
+            f"unsharded {[round(w, 1) for w in runs['plain'][2]]} ms; {smi}")
+        del runs, params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+
+    # paligemma-3b's train step peak, without and with donate
+    vspec = configs.get("paligemma-3b")
+    vparams = api.init(torch.Generator(device="cuda").manual_seed(0), vspec)
+    vopt = opt_init(vparams, opt_cfg)
+    vbatch = vlm_batch(vspec, 0, TRAIN_B, TRAIN_S - vspec.cfg.n_patches,
+                       "cuda")
+    peaks = {}
+    for donate in (False, True):
+        step = build_train_step(vspec, opt_cfg, donate=donate)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        new_p, new_o, _ = step(vparams, vopt, vbatch)
+        torch.cuda.synchronize()
+        peaks[donate] = (torch.cuda.max_memory_allocated() / 1e9,
+                         base / 1e9)
+        vparams, vopt = new_p, new_o
+        del new_p, new_o
+        torch.cuda.empty_cache()
+    log(f"[mesh-lm] paligemma-3b train step (8 x (256 patches + 256 text)) "
+        f"peak memory: donate=False {peaks[False][0]:.2f} GB, donate=True "
+        f"{peaks[True][0]:.2f} GB (held before the step {peaks[False][1]:.2f}"
+        f" and {peaks[True][1]:.2f} GB); {smi}")
+    del vparams, vopt, vbatch
+    torch.cuda.empty_cache()
+
+    # a first roofline share: the unsharded qwen3 train step (phase 17's
+    # shape) and prefill (phase 9's), counted by hloanalysis.analyze
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), spec)
+    opt_state = opt_init(params, opt_cfg)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                   global_batch=TRAIN_B, seed=0),
+                        device="cuda").batch(0)
+    train = build_train_step(spec, opt_cfg)
+    plain_step = build_serve_step(spec)
+    cases = {
+        "train step": lambda: train(params, opt_state, batch),
+        "prefill": lambda: plain_step(params, api.decode_state(
+            spec, B, P + MESH_DECODES), prompt, 0)}
+    for name, fn in cases.items():
+        launches.clear()
+        cost = hloanalysis.analyze(fn)
+        if not cost.kernels or cost.kernels != dict(launches):
+            raise AssertionError(f"roofline {name}: the analysis counted "
+                                 f"flash launches {cost.kernels}, the "
+                                 f"wrappers {dict(launches)}")
+        walls = walls_in_turns({name: fn}, [name] * 3)[name]
+        ct, mt, share = roofline(cost, min(walls))
+        log(f"[mesh-lm] roofline {name} qwen3-0.6b: {cost.flops:.4e} FLOPs, "
+            f"{cost.bytes:.4e} bytes (flash kernels counted from their "
+            f"shapes: {cost.kernels}); compute_t {ct * 1e3:.3f} ms, memory_t "
+            f"{mt * 1e3:.3f} ms at the H100 SXM datasheet rates; wall "
+            f"{[round(w, 2) for w in walls]} ms; share of the roofline "
+            f"{share:.3f}; {smi}")
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+
+    out, err = dry.communicate(timeout=600)
+    if dry.returncode != 0:
+        raise AssertionError(f"dry-run: exit {dry.returncode}: {err[-2000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry-run: {rec}")
+    log(f"[mesh-lm] dry-run qwen3-0.6b train_4k at the production mesh "
+        f"(256 fake ranks): {json.dumps(rec)}")
+    log(f"[mesh-lm] phase wall {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return serve_launches, MESH_TRAIN_STEPS * 2 * L, MESH_TRAIN_STEPS * L
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from the repository (src/repro_torch "
@@ -4493,6 +4761,7 @@ def main() -> int:
     vlm_prefill_n = phase_serve_vlm(_build.LAUNCHES, smi)
     vlm_fwd, vlm_bwd = phase_train_vlm(_build.LAUNCHES, smi)
     shard_launches = phase_shard_sm(_build.LAUNCHES, smi)
+    mesh_serve, mesh_fwd, mesh_bwd = phase_mesh_lm(_build.LAUNCHES, smi)
     kernels.append(time_flash_bwd(train_bwd, bwd_err))
     shapes = time_family_shapes()
     kernels[2]["launches_by_path"] = {
@@ -4508,14 +4777,17 @@ def main() -> int:
         "whisper-medium encoder (phase 22)": audio_enc,
         "whisper-medium training (phase 23)": audio_fwd,
         "paligemma-3b prefill (phase 24)": vlm_prefill_n,
-        "paligemma-3b training (phase 25)": vlm_fwd}
+        "paligemma-3b training (phase 25)": vlm_fwd,
+        "mesh serve (phase 27)": mesh_serve,
+        "mesh train (phase 27)": mesh_fwd}
     kernels[2]["shapes"] = shapes["forward"]
     kernels[-1]["launches_by_path"] = {
         "qwen3-0.6b training (phase 17)": train_bwd,
         "zamba2-1.2b training (phase 19)": zamba_bwd,
         f"{TRAIN_MOE} training (phase 21)": moe_bwd,
         "whisper-medium training (phase 23)": audio_bwd,
-        "paligemma-3b training (phase 25)": vlm_bwd}
+        "paligemma-3b training (phase 25)": vlm_bwd,
+        "mesh train (phase 27)": mesh_bwd}
     kernels[-1]["shapes"] = shapes["backward"]
     for key in ("tc_dh256", "simt_dh256"):
         kernels[-1][key]["library_ms"] = shapes["library_bwd_dh256"]["ms"]

@@ -59,6 +59,12 @@ def get(name: str) -> ArchSpec:
     return _cache[key]
 
 
+def all_archs():
+    """Every language-model architecture's spec (``ARCH_IDS`` but the
+    overlay's ``flexgrip``)."""
+    return [get(a) for a in ARCH_IDS if a != "flexgrip"]
+
+
 # Shared skip reasons
 SKIP_QUADRATIC = ("pure full-attention arch: a 524k dense-attention decode "
                   "is O(S^2) prefill / O(S) per-step KV with no "

@@ -35,6 +35,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from ..obs.jitprof import LIBRARY_LOADS
 
@@ -47,6 +48,17 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 #: (kernel name, variant) -> launches since the last ``VARIANTS.clear()``
 VARIANTS: collections.Counter = collections.Counter()
+
+def observe(name: str, *shape) -> None:
+    """Tell each active dispatch mode that counts kernels (``launch.
+    hloanalysis.CostMode``, its ``kernel`` method) of a flash forward or
+    backward launch, ``shape`` being ``(B, H, KH, Sq, Sk, dh, causal,
+    itemsize)``: the launch is no dispatcher operation, so no mode sees
+    it otherwise."""
+    for mode in _get_current_dispatch_mode_stack():
+        if getattr(mode, "counts_kernels", False):
+            mode.kernel(name, *shape)
+
 
 #: dtype codes of the C entries that take float32 or bfloat16 tensors
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}

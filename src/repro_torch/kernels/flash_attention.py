@@ -261,6 +261,8 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, forced, split=None):
     _build.check(rc, "flash_attention_bwd")
     _build.LAUNCHES["flash_attention_bwd"] += 1
     _build.VARIANTS[("flash_attention_bwd", chosen)] += 1
+    _build.observe("flash_attention_bwd", B, H, KH, Sq, Sk, dh, causal,
+                   q.element_size())
     return gq, gk, gv
 
 
@@ -291,4 +293,6 @@ def _launch(q, k, v, causal: bool, forced, want_lse: bool = False):
     _build.check(rc, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
     _build.VARIANTS[("flash_attention", chosen)] += 1
+    _build.observe("flash_attention", B, H, KH, Sq, Sk, dh, causal,
+                   q.element_size())
     return o, lse

@@ -1,7 +1,7 @@
 """The model-facing wrappers of the port's kernels (port of
 ``repro.kernels.ops``).
 
-Model code calls these.  ``matmul`` and ``mha`` keep the JAX package's
+Model code calls these.  ``simt_alu``, ``matmul`` and ``mha`` keep the JAX package's
 signatures and its shape rule, so the same shapes reach the kernels: on
 CUDA tensors they launch the hand-written kernels, on CPU tensors the
 plain versions.  There is no interpret mode and no fallback on a kernel
@@ -12,6 +12,14 @@ from __future__ import annotations
 from . import flash_attention as _fa
 from . import matmul as _mm
 from . import ref
+from . import simt_alu as _sa
+
+
+def simt_alu(op, s1, s2, s3, cond, s2r, mask, *, enable_mul=True,
+             num_read_operands=3):
+    return _sa.simt_alu(op, s1, s2, s3, cond, s2r, mask,
+                        enable_mul=enable_mul,
+                        num_read_operands=num_read_operands)
 
 
 def matmul(a, b, **kw):

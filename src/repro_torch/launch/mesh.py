@@ -24,9 +24,17 @@ The paper connection: the FlexGrip block scheduler maps thread blocks
 round-robin onto SMs; here data shards map onto devices along ``(pod,
 data)``.
 
-Applying the specs to tensors (the JAX package's ``param_sharding_tree``
-and ``make_constrain``, on torch ``DeviceMesh``/DTensor) is not ported
-yet: it needs a process group per device.
+Applying the specs: :func:`device_mesh` makes a torch ``DeviceMesh`` of a
+:class:`Mesh` (a process group with one rank per device must exist),
+:func:`placements` turns a :class:`P` into DTensor placements,
+:class:`NamedSharding` pairs the two and :func:`place` distributes a tree
+of tensors by a tree of them (``jax.jit``'s ``in_shardings``).
+:func:`make_constrain` is the ``constrain(x, kind)`` hook the models call:
+it redistributes a DTensor to :func:`act_spec`'s placements.  The rules
+and :func:`make_constrain` take either a :class:`Mesh` or a
+``DeviceMesh`` (:func:`rules_mesh`).  :func:`local_call` runs a function
+that DTensor has no rule for, or a CUDA kernel, on each rank's local
+shards.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .. import tree as T
 from ..core.pipeline.state import resolve_device
@@ -208,6 +217,7 @@ def spec_tree(tree, mesh: Mesh, spec_fn):
     and lists (leaves in JAX's order; a path's keys and indices joined by
     '/').  A :class:`P` is a tuple, so read the result's leaves with
     ``tree.leaves(specs, is_leaf=lambda x: isinstance(x, P))``."""
+    mesh = rules_mesh(mesh)
     specs = [spec_fn("/".join(str(k) for k in path), tuple(leaf.shape), mesh)
              for path, leaf in T.leaves_with_paths(tree)]
     return T.unflatten(tree, specs)
@@ -337,3 +347,214 @@ def decode_state_spec(path: str, shape, mesh: Mesh) -> P:
                 "model" if C % nm == 0 else None]
         return _fit(mesh, shape, tuple(spec))
     return batch_spec(path, shape, mesh)
+
+
+# ------------------------------------------------------ applying the specs
+def rules_mesh(mesh) -> Mesh:
+    """The :class:`Mesh` the rules read (axis names and sizes) of a torch
+    ``DeviceMesh``; anything else (a :class:`Mesh`, or any object with
+    ``axis_names`` and ``shape``) as it is."""
+    if not hasattr(mesh, "mesh_dim_names"):
+        return mesh
+    return _make_mesh(tuple(mesh.shape), mesh.mesh_dim_names)
+
+
+def device_mesh(mesh: Mesh, device_type: Optional[str] = None):
+    """A torch ``DeviceMesh`` with ``mesh``'s axis names, order and sizes,
+    over the ranks of the default process group (which must have
+    ``prod(mesh.shape)`` ranks).  ``device_type`` defaults to the type of
+    ``mesh.devices``, else ``"cuda"``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if device_type is None:
+        device_type = (mesh.devices.flat[0].type if mesh.devices is not None
+                       else "cuda")
+    return init_device_mesh(device_type, tuple(mesh.shape.values()),
+                            mesh_dim_names=tuple(mesh.axis_names))
+
+
+def placements(spec: P, mesh) -> tuple:
+    """DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh``: a
+    tensor dim d naming an axis is ``Shard(d)`` on that mesh dim (a tuple
+    of axes, ``("pod", "data")``, on each of them, major to minor, as in
+    JAX); every other mesh dim is ``Replicate()``, and so is a mesh dim of
+    size 1 (the same layout: DTensor will not reshape a tensor dim sharded
+    even one way)."""
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        dims = [names.index(a) for a in
+                (entry if isinstance(entry, tuple) else (entry,))]
+        if dims != sorted(dims):
+            raise ValueError(f"placements: {entry} is not in the mesh's "
+                             f"axis order {names}")
+        for i in dims:
+            if mesh.size(i) > 1:
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A ``DeviceMesh`` and a :class:`P` (JAX's ``NamedSharding``)."""
+    mesh: object
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh)
+
+
+def sharding_tree(tree, mesh, spec_fn):
+    """:class:`NamedSharding` of each leaf of ``tree`` by ``spec_fn`` (a
+    rule of this module) on the ``DeviceMesh`` ``mesh``."""
+    specs = spec_tree(tree, mesh, spec_fn)
+    return T.tree_map(lambda s: NamedSharding(mesh, s), specs,
+                      is_leaf=lambda x: isinstance(x, P))
+
+
+def param_sharding_tree(shapes_tree, mesh):
+    return sharding_tree(shapes_tree, mesh, param_spec)
+
+
+def place(tree, shardings):
+    """``tree``'s tensors distributed by ``shardings`` (a tree of
+    :class:`NamedSharding` of the same structure, or one for a single
+    tensor): a plain tensor becomes this rank's shard of it, with no
+    communication (every rank is given the same tensors, as every JAX
+    host is); a DTensor is redistributed where its placements differ."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(t, s):
+        pl = s.placements
+        if isinstance(t, DTensor):
+            return t if tuple(t.placements) == pl else \
+                t.redistribute(s.mesh, pl)
+        return distribute_tensor(t, s.mesh, pl, src_data_rank=None)
+
+    if isinstance(shardings, NamedSharding):
+        return one(tree, shardings)
+    return T.tree_map(one, tree, shardings)
+
+
+def shard_range(size: int, mesh, placements, dim: int):
+    """(offset, length) of this rank's shard of a tensor dim of ``size``
+    under ``placements`` (torch.chunk's split, mesh dims major to minor).
+    Reads only this rank's mesh coordinate, so it works on fake tensors."""
+    coord = mesh.get_coordinate()
+    off, n = 0, size
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            chunk = -(-n // mesh.size(i))
+            o = min(coord[i] * chunk, n)
+            off, n = off + o, max(0, min(chunk, n - o))
+    return off, n
+
+
+def local_shape(t) -> tuple:
+    """The shape of the shard this rank holds (``t``'s shape when ``t``
+    is not a DTensor)."""
+    return tuple((t.to_local() if isinstance(t, DTensor) else t).shape)
+
+
+def make_constrain(mesh, profile: str = "tp"):
+    """Build the ``constrain(x, kind)`` callback passed into models: the
+    identity when ``mesh`` is None; otherwise ``x`` redistributed to
+    :func:`act_spec`'s placements on the ``DeviceMesh`` ``mesh``, or
+    ``x`` unchanged where the spec is None or a dim does not divide (e.g.
+    batch 1 long-context decode).  The ``"param:<name>"`` kinds act only
+    under ``profile="seq"``."""
+    if mesh is None:
+        return lambda x, *a: x
+    rm = rules_mesh(mesh)
+
+    def constrain(x, kind):
+        spec = act_spec(kind, tuple(x.shape), rm, profile)
+        if spec is None:
+            return x
+        sizes = [_axis_size(rm, a) for a in spec]
+        if not all(d % n == 0 for d, n in zip(x.shape, sizes)):
+            return x
+        target = placements(spec, mesh)
+        return x if tuple(x.placements) == target else \
+            x.redistribute(mesh, target)
+
+    return constrain
+
+
+class _PartialFromLocal(torch.autograd.Function):
+    """``DTensor.from_local(local, mesh, placements)`` whose gradient is
+    taken at ``grad_placements`` (the keyword of ``from_local`` that
+    older torch lacks)."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, placements, grad_placements):
+        ctx.mesh, ctx.grad_placements = mesh, grad_placements
+        return DTensor.from_local(local, mesh, placements, run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor):
+            if tuple(grad.placements) != ctx.grad_placements:
+                grad = grad.redistribute(ctx.mesh, ctx.grad_placements)
+            grad = grad.to_local()
+        return grad, None, None, None
+
+
+def local_call(fn, args, in_placements, out_placements, mesh):
+    """``fn(*locals)`` on each rank's shards: every DTensor in ``args`` is
+    redistributed to its entry of ``in_placements`` and handed to ``fn``
+    as its local tensor; ``fn``'s output becomes a DTensor with
+    ``out_placements`` (a tuple of outputs, one placement sequence each).
+    Plain tensors in ``args`` pass as they are.
+
+    Differentiable both ways.  An argument replicated on a mesh dim that
+    another argument is sharded on (the work is split there, each rank
+    using all of it) gets its gradient as ``Partial`` on that dim, each
+    rank's share summed; where every argument is replicated on a dim the
+    ranks repeat the same work and the gradient stays replicated."""
+    placed = []
+    for a, pl in zip(args, in_placements):
+        if isinstance(a, DTensor) and tuple(a.placements) != tuple(pl):
+            a = a.redistribute(mesh, pl)
+        placed.append(a)
+    split = {i for a in placed if isinstance(a, DTensor)
+             for i, p in enumerate(a.placements) if isinstance(p, Shard)}
+    local = []
+    for a in placed:
+        if isinstance(a, DTensor):
+            grad_pl = [Partial() if i in split and isinstance(p, Replicate)
+                       else p for i, p in enumerate(a.placements)]
+            a = a.to_local(grad_placements=grad_pl)
+        local.append(a)
+    out = fn(*local)
+
+    def wrap(o, pl):
+        if not any(isinstance(p, Partial) for p in pl):
+            return DTensor.from_local(o, mesh, pl, run_check=False)
+        # a Partial output is this rank's share of a sum: its gradient is
+        # the sum's, whole on every rank
+        grad_pl = tuple(Replicate() if isinstance(p, Partial) else p
+                        for p in pl)
+        return _PartialFromLocal.apply(o, mesh, tuple(pl), grad_pl)
+
+    if isinstance(out, tuple):
+        return tuple(wrap(o, pl) for o, pl in zip(out, out_placements))
+    return wrap(out, out_placements)
+
+
+def pin_grad(x, whole_last: bool = False):
+    """``x`` itself, whose gradient arrives redistributed to ``x``'s own
+    placements (the cotangent side of JAX's sharding constraint); with
+    ``whole_last`` both are first gathered on the last axis.  Before a
+    product that consumes the gradient, so that DTensor sees a layout it
+    can propagate (not a token axis strided over a 3-axis mesh).  A plain
+    tensor passes."""
+    if not isinstance(x, DTensor):
+        return x
+    last = x.ndim - 1
+    pl = tuple(Replicate() if isinstance(p, Partial) or (
+        whole_last and isinstance(p, Shard) and p.dim in (last, -1)) else p
+        for p in x.placements)
+    return local_call(lambda t: t, (x,), (pl,), pl, x.device_mesh)

@@ -1,12 +1,15 @@
 """Family-dispatched model API (port of ``repro.models.api``).
 
-``init``, ``param_shapes``, ``apply_train``, ``decode_state`` and
-``apply_decode`` for the dense and moe (``transformer``), ssm (mamba2),
+``init``, ``param_shapes``, ``apply_train``, ``decode_state``,
+``apply_decode`` and ``input_specs`` for the dense and moe (``transformer``), ssm (mamba2),
 hybrid (zamba2), audio (``encdec``, whisper) and vlm (``vlm``,
 paligemma) families; an unknown family raises ``ValueError``, as in the
 JAX package.  Decode state is the stacked KV caches (dense, moe, vlm,
 hybrid, audio), SSD + conv states (ssm, hybrid), written in place by each
 step, and the audio family's cross K/V, which a step returns unchanged.
+``apply_train`` and ``apply_decode`` pass the JAX package's ``constrain``
+hook into every model (the identity by default; a mesh's from
+``launch.mesh.make_constrain``).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from ..configs import ArchSpec
+from ..configs import SHAPES, ArchSpec
 from ..core.pipeline.state import resolve_device
 from . import encdec, hybrid, layers as L, mamba2, transformer, vlm
 
@@ -40,7 +43,8 @@ def param_shapes(spec: ArchSpec):
     return _model(spec).init(torch.Generator(), spec.cfg, device="meta")
 
 
-def apply_train(params, spec: ArchSpec, batch) -> torch.Tensor:
+def apply_train(params, spec: ArchSpec, batch,
+                constrain=lambda t, *a: t) -> torch.Tensor:
     """The token-mean loss of one batch ({"tokens", "labels"}, each (B, S)
     integer; the audio family also ``"frames"``, (B, enc_len, D), and the
     vlm family ``"patches"``, (B, n_patches, d_vision), whose positions
@@ -49,16 +53,18 @@ def apply_train(params, spec: ArchSpec, batch) -> torch.Tensor:
     model = _model(spec)
     tokens, labels = batch["tokens"], batch["labels"]
     if spec.family in ("dense", "moe"):
-        return transformer.loss(params, spec.cfg, tokens, labels)
+        return transformer.loss(params, spec.cfg, tokens, labels,
+                                constrain=constrain)
     if spec.family == "vlm":
         return transformer.loss(
-            params, spec.cfg.lm, tokens, labels,
+            params, spec.cfg.lm, tokens, labels, constrain=constrain,
             prefix_embed=vlm.project(params, batch["patches"]),
             prefix_drop=spec.cfg.n_patches)
     if spec.family == "audio":
-        logits = encdec.forward(params, spec.cfg, batch["frames"], tokens)
+        logits = encdec.forward(params, spec.cfg, batch["frames"], tokens,
+                                constrain)
     else:
-        logits = model.forward(params, spec.cfg, tokens)
+        logits = model.forward(params, spec.cfg, tokens, constrain=constrain)
     return L.softmax_xent(logits, labels)
 
 
@@ -93,7 +99,7 @@ def decode_state(spec: ArchSpec, batch: int, max_seq: int, *,
 
 
 def apply_decode(params, spec: ArchSpec, tokens, state,
-                 cache_index: Optional[int]):
+                 cache_index: Optional[int], constrain=lambda t, *a: t):
     """One serving step: tokens (B, S) -> (logits (B, S, V), new state).
     S = 1 decodes; S > 1 at ``cache_index`` 0 is the prefill.  The ssm
     family ignores ``cache_index``, as in the JAX package; the vlm family
@@ -101,24 +107,52 @@ def apply_decode(params, spec: ArchSpec, tokens, state,
     _model(spec)
     if spec.family == "ssm":
         logits, st = mamba2.forward(params, spec.cfg, tokens,
-                                    states=state["ssm"])
+                                    states=state["ssm"], constrain=constrain)
         return logits, {"ssm": st}
     if spec.family == "hybrid":
         logits, st, kv = hybrid.forward(
             params, spec.cfg, tokens, states=state["ssm"],
-            kv_caches=state["kv"], cache_index=cache_index)
+            kv_caches=state["kv"], cache_index=cache_index,
+            constrain=constrain)
         return logits, {"ssm": st, "kv": kv}
     if spec.family == "audio":
         logits, kv = encdec.decode(
             params, spec.cfg, tokens, cross=state["cross"],
-            kv_caches=state["kv"], cache_index=cache_index)
+            kv_caches=state["kv"], cache_index=cache_index,
+            constrain=constrain)
         return logits, {"kv": kv, "cross": state["cross"]}
     if spec.family == "vlm":
         logits, kv = vlm.forward(params, spec.cfg, tokens, None,
                                  kv_caches=state["kv"],
-                                 cache_index=cache_index)
+                                 cache_index=cache_index,
+                                 constrain=constrain)
         return logits, {"kv": kv}
     logits, kv = transformer.forward(
-        params, spec.cfg, tokens, kv_caches=state["kv"],
+        params, spec.cfg, tokens, constrain=constrain, kv_caches=state["kv"],
         cache_index=cache_index)
     return logits, {"kv": kv}
+
+
+def input_specs(spec: ArchSpec, shape_name: str):
+    """The model inputs of one cell (``configs.SHAPES``) as tensors on the
+    ``meta`` device, with the JAX package's shapes and dtypes: train and
+    prefill {"tokens", "labels"} int32 (B, S) (the vlm family's S less
+    its patches, and "patches" fp32 (B, n_patches, d_vision); the audio
+    family's "frames" fp32 (B, enc_len, d_model)); decode {"tokens"} (B,
+    1)."""
+    seq, batch, kind = SHAPES[shape_name]
+
+    def sd(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kind == "decode":
+        return {"tokens": sd((batch, 1))}
+    text = seq - spec.cfg.n_patches if spec.family == "vlm" else seq
+    out = {"tokens": sd((batch, text)), "labels": sd((batch, text))}
+    if spec.family == "vlm":
+        out["patches"] = sd((batch, spec.cfg.n_patches, spec.cfg.d_vision),
+                            torch.float32)
+    if spec.family == "audio":
+        out["frames"] = sd((batch, spec.cfg.enc_len, spec.cfg.d_model),
+                           torch.float32)
+    return out

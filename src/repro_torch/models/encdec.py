@@ -91,7 +91,7 @@ def _positions(B: int, S: int, start: int, device):
                                  device=device))[None, :].expand(B, S)
 
 
-def encode(params, cfg: EncDecConfig, frames):
+def encode(params, cfg: EncDecConfig, frames, constrain=lambda t, *a: t):
     """frames: (B, T_enc, D) stub embeddings -> (B, T_enc, D); every layer
     under the remat policy (``layers.remat``)."""
     x = frames.to(L.COMPUTE_DTYPE) + params["enc_pos"][None]
@@ -101,14 +101,15 @@ def encode(params, cfg: EncDecConfig, frames):
 
     def body(x, lp):
         h = L.rmsnorm(lp["ln1"], x)
-        q = (h @ lp["attn"]["wq"]).reshape(B, T, H, dh)
-        k = (h @ lp["attn"]["wk"]).reshape(B, T, Kh, dh)
-        v = (h @ lp["attn"]["wv"]).reshape(B, T, Kh, dh)
+        q = L.split_last(h @ lp["attn"]["wq"], H, dh)
+        k = L.split_last(h @ lp["attn"]["wk"], Kh, dh)
+        v = L.split_last(h @ lp["attn"]["wv"], Kh, dh)
         q = L.apply_rope(q, positions)
         k = L.apply_rope(k, positions)
         o = L.full_attention(q, k, v)
-        x = x + o.reshape(B, T, H * dh) @ lp["attn"]["wo"]
-        return x + L.ffn_apply(lp["ffn"], L.rmsnorm(lp["ln2"], x))
+        x = x + constrain(L.merge_last(o) @ lp["attn"]["wo"],
+                          "act_resid")
+        return x + L.ffn_apply(lp["ffn"], L.rmsnorm(lp["ln2"], x), constrain)
 
     body = L.remat(cfg.remat, body)
     for i in range(cfg.n_layers):
@@ -122,13 +123,14 @@ def cross_kv(params, cfg: EncDecConfig, enc_out):
     B, T, D = enc_out.shape
     Kh, dh = cfg.attn.n_kv, cfg.attn.head_dim
     cross = params["dec"]["cross"]
-    ks = [(enc_out @ w).reshape(B, T, Kh, dh) for w in cross["wk"]]
-    vs = [(enc_out @ w).reshape(B, T, Kh, dh) for w in cross["wv"]]
+    ks = [L.split_last(enc_out @ w, Kh, dh) for w in cross["wk"]]
+    vs = [L.split_last(enc_out @ w, Kh, dh) for w in cross["wv"]]
     return torch.stack(ks), torch.stack(vs)
 
 
 def decode(params, cfg: EncDecConfig, tokens, enc_out=None, *,
-           cross=None, kv_caches=None, cache_index: Optional[int] = None):
+           cross=None, kv_caches=None, cache_index: Optional[int] = None,
+           constrain=lambda t, *a: t):
     """Decoder forward: tokens (B, S) -> logits (B, S, V) fp32.  Supply
     either ``enc_out`` (training) or ``cross`` ((k, v) from
     :func:`cross_kv`, serving).  ``kv_caches``: the self-attention's
@@ -137,7 +139,7 @@ def decode(params, cfg: EncDecConfig, tokens, enc_out=None, *,
     without caches, as in the JAX package."""
     if cross is None:
         cross = cross_kv(params, cfg, enc_out)
-    x = L.embed_apply(params["embed"], tokens)
+    x = constrain(L.embed_apply(params["embed"], tokens), "act_resid")
     B, S, _ = x.shape
     start = 0 if cache_index is None else int(cache_index)
     positions = _positions(B, S, start, x.device)
@@ -146,13 +148,15 @@ def decode(params, cfg: EncDecConfig, tokens, enc_out=None, *,
     def body(x, lp, ck, cv, cache=None):
         h, new_cache = L.attn_apply(lp["self"], cfg.attn,
                                     L.rmsnorm(lp["ln1"], x), positions,
-                                    kv_cache=cache, cache_index=cache_index)
+                                    kv_cache=cache, cache_index=cache_index,
+                                    constrain=constrain)
         x = x + h
         hx = L.rmsnorm(lp["lnx"], x)
-        q = (hx @ lp["cross"]["wq"]).reshape(B, S, H, dh)
+        q = L.split_last(hx @ lp["cross"]["wq"], H, dh)
         o = L.full_attention(q, ck, cv)
-        x = x + o.reshape(B, S, H * dh) @ lp["cross"]["wo"]
-        x = x + L.ffn_apply(lp["ffn"], L.rmsnorm(lp["ln2"], x))
+        x = x + constrain(L.merge_last(o) @ lp["cross"]["wo"],
+                          "act_resid")
+        x = x + L.ffn_apply(lp["ffn"], L.rmsnorm(lp["ln2"], x), constrain)
         return x, new_cache
 
     if kv_caches is None:
@@ -170,7 +174,8 @@ def decode(params, cfg: EncDecConfig, tokens, enc_out=None, *,
     return (logits, kv_caches) if kv_caches is not None else logits
 
 
-def forward(params, cfg: EncDecConfig, frames, tokens):
+def forward(params, cfg: EncDecConfig, frames, tokens,
+            constrain=lambda t, *a: t):
     """Full encoder-decoder training forward: logits (B, S, V) fp32."""
-    enc_out = encode(params, cfg, frames)
-    return decode(params, cfg, tokens, enc_out)
+    enc_out = encode(params, cfg, frames, constrain)
+    return decode(params, cfg, tokens, enc_out, constrain=constrain)

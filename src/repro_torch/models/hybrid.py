@@ -79,17 +79,18 @@ def init(gen: torch.Generator, cfg: HybridConfig, device=None):
 
 
 def _shared_block(sp, cfg: HybridConfig, x, positions, kv_cache=None,
-                  cache_index=None):
+                  cache_index=None, constrain=lambda t, *a: t):
     h, new_cache = L.attn_apply(sp["attn"], cfg.attn,
                                 L.rmsnorm(sp["ln1"], x), positions,
-                                kv_cache=kv_cache, cache_index=cache_index)
+                                kv_cache=kv_cache, cache_index=cache_index,
+                                constrain=constrain)
     x = x + h
-    x = x + L.ffn_apply(sp["ffn"], L.rmsnorm(sp["ln2"], x))
+    x = x + L.ffn_apply(sp["ffn"], L.rmsnorm(sp["ln2"], x), constrain)
     return x, new_cache
 
 
 def forward(params, cfg: HybridConfig, tokens, *, states=None,
-            kv_caches=None, cache_index=None):
+            kv_caches=None, cache_index=None, constrain=lambda t, *a: t):
     """Grouped: [shared attention, ``attn_every`` mamba blocks] x n_apps.
 
     tokens (B, S) -> logits (B, S, V) fp32.  ``states``: the stacked
@@ -97,7 +98,7 @@ def forward(params, cfg: HybridConfig, tokens, *, states=None,
     K, dh) or None.  Both are written in place and returned after the
     logits, each when given."""
     mcfg = cfg.mamba
-    x = L.embed_apply(params["embed"], tokens)
+    x = constrain(L.embed_apply(params["embed"], tokens), "act_resid")
     B, S, _ = x.shape
     start = 0 if cache_index is None else int(cache_index)
     positions = (start + torch.arange(S, dtype=torch.int32,
@@ -108,8 +109,10 @@ def forward(params, cfg: HybridConfig, tokens, *, states=None,
         cache = None if kv_caches is None else \
             (kv_caches[0][app], kv_caches[1][app])
         x, _ = _shared_block(params["shared"], cfg, x, positions,
-                             kv_cache=cache, cache_index=cache_index)
-        x = M.run_layers(params["layers"], mcfg, x, lo, hi, states)
+                             kv_cache=cache, cache_index=cache_index,
+                             constrain=constrain)
+        x = M.run_layers(params["layers"], mcfg, x, lo, hi, states,
+                         constrain)
     x = L.rmsnorm(params["final_norm"], x)
     logits = L.unembed_apply(params["embed"], x)
     outs = [logits]

@@ -11,6 +11,14 @@ Conventions, as in the JAX package:
 * initialisation takes an explicit ``torch.Generator``; tensors are made
   on its device.
 
+Every function that takes ``constrain`` calls it where the JAX package
+does: ``constrain(x, kind)`` is the identity off a mesh, and under one
+(``launch.mesh.make_constrain``) redistributes a DTensor to the kind's
+placements.  The attentions take DTensors through :func:`attend`, which
+runs them on each rank's shards (the flash kernels take plain tensors),
+and :func:`write_cache` writes a step into a sharded KV cache shard by
+shard.
+
 Prefill and training attention go through
 :func:`repro_torch.kernels.ops.mha`, the flash kernel on the card (its
 forward, and under autograd its backward kernel; :func:`attn_apply` says
@@ -23,17 +31,22 @@ cross-entropy.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..kernels import flash_attention as _fa
 from ..kernels import ops
+from ..launch.mesh import local_call, pin_grad, shard_range
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.bfloat16
@@ -190,6 +203,171 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512):
     return torch.stack(outs, 1).reshape(B, S, H, dh)
 
 
+def split_last(x, *shape):
+    """``x`` (..., n) reshaped to (..., *shape).  A DTensor sharded on its
+    last axis over mesh dims that do not divide ``shape[0]`` (8 KV heads
+    over a 16-way ``model`` axis) is first gathered on those dims:
+    DTensor does not unflatten an uneven shard."""
+    if isinstance(x, DTensor):
+        last, mesh = x.ndim - 1, x.device_mesh
+        n, pl = shape[0], list(x.placements)
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard) and p.dim in (last, -1):
+                if n % mesh.size(i):
+                    pl[i] = Replicate()
+                else:
+                    n //= mesh.size(i)
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+    return x.reshape(*x.shape[:-1], *shape)
+
+
+def _counting() -> bool:
+    """Whether a dispatch mode that reads region names (``launch.
+    hloanalysis.CostMode``, ``reads_scopes``) is active."""
+    return any(getattr(m, "reads_scopes", False)
+               for m in _get_current_dispatch_mode_stack())
+
+
+def _attn_scope():
+    """The region ``"flashable_attn"`` (``torch.profiler.
+    record_function``) while a cost analysis counts, else nothing: a
+    name costs microseconds."""
+    return torch.profiler.record_function("flashable_attn") \
+        if _counting() else contextlib.nullcontext()
+
+
+def attend(fn, q, k, v):
+    """``fn(q, k, v)``, an attention over q (B, S, H, dh) and k/v (B, T,
+    K, dh) with H % K == 0, returning (B, S, H, dh).  Plain tensors go
+    straight to ``fn``.  A DTensor q runs ``fn`` on each rank's shards
+    (``launch.mesh.local_call``): the batch keeps q's sharding and so do
+    the heads; the sequence, the head dim and anything ``Partial`` are
+    gathered (``profile="seq"`` shards q's sequence, and the causal kernel
+    masks from the top-left of the rows it is given).  k and v follow q's
+    batch, and its heads where the mesh dim divides K; otherwise each rank
+    gets every KV head and picks, for its own query heads, the group each
+    reads (head h reads group h // (H // K)), so that GQA groups stay
+    whole.  The call is the region ``"flashable_attn"`` of a cost
+    analysis."""
+    if not isinstance(q, DTensor) and not _counting():
+        return fn(q, k, v)
+    with _attn_scope():
+        return _attend(fn, q, k, v)
+
+
+def _attend(fn, q, k, v, time_fn=None):
+    """:func:`attend`'s body.  With ``time_fn``, the mesh dims that shard
+    k's time axis keep it sharded (q is gathered there) and ``time_fn(q,
+    k, v, mesh, dims, t0)`` runs in ``fn``'s place, given those dims and
+    the shard's first key position."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    tdims = [i for i, p in enumerate(k.placements) if time_fn is not None
+             and isinstance(p, Shard) and p.dim == 1]
+    qpl, kpl, split = [], [], False
+    for i, p in enumerate(q.placements):
+        if i in tdims:
+            qpl.append(Replicate())
+            kpl.append(Shard(1))
+        elif isinstance(p, Shard) and p.dim == 0:
+            qpl.append(p)
+            kpl.append(p)
+        elif isinstance(p, Shard) and p.dim == 2:
+            qpl.append(p)
+            whole = K % mesh.size(i) == 0 and H % mesh.size(i) == 0
+            kpl.append(p if whole else Replicate())
+            split = split or not whole
+        else:
+            qpl.append(Replicate())
+            kpl.append(Replicate())
+    h0, hn = shard_range(H, mesh, qpl, 2)
+    heads = torch.arange(h0, h0 + hn, device=q.to_local().device)
+    t0 = shard_range(k.shape[1], mesh, kpl, 1)[0]
+
+    def run(ql, kl, vl):
+        if split:
+            groups = heads // (H // K)
+            kl, vl = kl.index_select(2, groups), vl.index_select(2, groups)
+        if tdims:
+            return time_fn(ql, kl, vl, mesh, tdims, t0)
+        return fn(ql, kl, vl)
+
+    return local_call(run, (q, k, v), (qpl, kpl, kpl), tuple(qpl), mesh)
+
+
+def _decode_time_split(q, k, v, mesh, dims, t0, *, q_offset: int):
+    """:func:`causal_attention` (``causal=False``, fp32 softmax) of the
+    whole cache from this rank's shard of its time axis (keys ``t0`` on):
+    each shard's row maximum, exponential sums and weighted values, made
+    global by all-reduces over the mesh ``dims`` that split the time
+    (max, then sums), so that no shard of the cache moves.  Exact in
+    value; its sums run in another order than the plain function's."""
+    B, S, H, dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    rep = H // K
+    qg = q.reshape(B, S, K, rep, dh)
+    logits = torch.einsum("bskrd,btkd->bkrst", qg.float(), k.float()) \
+        * torch.tensor(dh ** -0.5, dtype=torch.float32)
+    qpos = q_offset + torch.arange(S, device=q.device)
+    kpos = t0 + torch.arange(T, device=q.device)
+    logits = logits.masked_fill(qpos[:, None] < kpos[None, :], -1e30)
+    m = logits.amax(-1, keepdim=True)
+    for i in dims:
+        m = funcol.all_reduce(m, "max", (mesh, i))
+    e = torch.exp(logits - m)
+    den = e.sum(-1)                                        # (B, K, rep, S)
+    num = torch.einsum("bkrst,btkd->bskrd", e, v.float())
+    for i in dims:
+        den = funcol.all_reduce(den, "sum", (mesh, i))
+        num = funcol.all_reduce(num, "sum", (mesh, i))
+    out = num / den.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, S, H, dh).to(q.dtype)
+
+
+def attend_cache(q, ck, cv, q_offset: int):
+    """A decode step's attention over the KV cache: the plain
+    :func:`causal_attention` (``causal=False``, ``q_offset``), placed as
+    :func:`attend` places it, but a DTensor cache sharded on its time axis
+    (``decode_state_spec`` at batch 1, or where the KV heads do not divide
+    the ``model`` axis) is read where it lies (:func:`_decode_time_split`).
+    """
+    if not isinstance(q, DTensor) and not _counting():
+        return causal_attention(q, ck, cv, causal=False, q_offset=q_offset)
+    with _attn_scope():
+        return _attend(
+            functools.partial(causal_attention, causal=False,
+                              q_offset=q_offset), q, ck, cv,
+            time_fn=functools.partial(_decode_time_split,
+                                      q_offset=q_offset))
+
+
+def write_cache(cache, new, index: int):
+    """``cache[:, index:index + S] = new`` in place: cache (B, T, K, dh),
+    new (B, S, K, dh).  On a DTensor cache each rank writes the part of
+    ``new`` that falls in its own shard of T (the batch and the heads of
+    ``new`` are first redistributed to the cache's), so a cache sharded on
+    T is written where it lies and never gathered."""
+    S = new.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, index:index + S] = new
+        return
+    mesh = cache.device_mesh
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in cache.placements)
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim)
+    if tuple(new.placements) != pl:
+        new = new.redistribute(mesh, pl)
+    t0, tn = shard_range(cache.shape[1], mesh, cache.placements, 1)
+    lo, hi = max(index, t0), min(index + S, t0 + tn)
+    if lo < hi:
+        cache.to_local()[:, lo - t0:hi - t0] = \
+            new.to_local()[:, lo - index:hi - index]
+
+
 #: the longest query that :func:`full_attention` gives the plain version
 #: (decode steps)
 FULL_ATTENTION_PLAIN_MAX_SQ = 8
@@ -211,8 +389,10 @@ def full_attention(q, k, v):
     align, so the kernel computes the plain version's function at every
     length.  On CPU tensors the flash wrapper takes its plain version."""
     if q.shape[1] > FULL_ATTENTION_PLAIN_MAX_SQ:
-        return _fa.flash_attention_gqa(q, k, v, causal=False)
-    return causal_attention(q, k, v, causal=False)
+        return attend(functools.partial(_fa.flash_attention_gqa,
+                                        causal=False), q, k, v)
+    return attend(functools.partial(causal_attention, causal=False),
+                  q, k, v)
 
 
 # -------------------------------------------------------------- attention block
@@ -246,7 +426,8 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, lead=(), device=None):
 
 
 def attn_apply(p, cfg: AttnConfig, x, positions, *, kv_cache=None,
-               cache_index: Optional[int] = None):
+               cache_index: Optional[int] = None,
+               constrain=lambda t, *a: t):
     """Returns (out, new_kv_cache).  kv_cache: (k, v) each (B, T, K, dh).
 
     The cache is written in place (the JAX package donates it) and
@@ -256,7 +437,8 @@ def attn_apply(p, cfg: AttnConfig, x, positions, *, kv_cache=None,
       the bf16 softmax: the plain :func:`causal_attention`;
       ``impl="chunked"``: :func:`chunked_attention` (causal, ``q_chunk``);
     * cache, ``cache_index == 0`` and S > 1 (the prefill step):
-      ``ops.mha`` over the live prefix ``ck[:, :S]``, causal — the same
+      ``ops.mha`` over the live prefix, the step's own k and v in the
+      cache's dtype (what the cache holds there), causal — the same
       function as the masked f32 attention over the whole cache that the
       JAX package computes there, whose entries past S get weight
       exactly 0;
@@ -266,22 +448,31 @@ def attn_apply(p, cfg: AttnConfig, x, positions, *, kv_cache=None,
     """
     B, S, D = x.shape
     H, K, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
-    k = (x @ p["wk"]).reshape(B, S, K, dh)
-    v = (x @ p["wv"]).reshape(B, S, K, dh)
+    wq = constrain(p["wq"], "param:attn/wq")
+    wk = constrain(p["wk"], "param:attn/wk")
+    wv = constrain(p["wv"], "param:attn/wv")
+    wo = constrain(p["wo"], "param:attn/wo")
+    q = split_last(x @ wq, H, dh)
+    k = split_last(x @ wk, K, dh)
+    v = split_last(x @ wv, K, dh)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "act_heads")
+    k = constrain(k, "act_kv")
+    mha = functools.partial(ops.mha, causal=True)
     if kv_cache is None:
         if cfg.impl == "chunked":
-            out = chunked_attention(q, k, v, causal=True,
-                                    q_chunk=cfg.q_chunk)
+            fn = functools.partial(chunked_attention, causal=True,
+                                   q_chunk=cfg.q_chunk)
         elif cfg.softmax_dtype == "f32":
-            out = ops.mha(q, k, v, causal=True)
+            fn = mha
         else:
-            out = causal_attention(q, k, v, softmax_dtype=cfg.softmax_dtype)
+            fn = functools.partial(causal_attention,
+                                   softmax_dtype=cfg.softmax_dtype)
+        out = attend(fn, q, k, v)
         new_cache = None
     else:
         ck, cv = kv_cache
@@ -289,17 +480,17 @@ def attn_apply(p, cfg: AttnConfig, x, positions, *, kv_cache=None,
         if ci < 0 or ci + S > ck.shape[1]:
             raise ValueError(f"attn_apply: {S} tokens at cache index {ci} "
                              f"do not fit a cache of {ck.shape[1]}")
-        ck[:, ci:ci + S] = k
-        cv[:, ci:ci + S] = v
+        write_cache(ck, k, ci)
+        write_cache(cv, v, ci)
         if ci == 0 and S > 1:
-            out = ops.mha(q, ck[:, :S], cv[:, :S], causal=True)
+            out = attend(mha, q, k.to(ck.dtype), v.to(cv.dtype))
         else:
             # position-based mask: causal within the new chunk AND only
             # the first cache_index + S cache entries are live
-            out = causal_attention(q, ck, cv, causal=False, q_offset=ci)
+            out = attend_cache(q, ck, cv, ci)
         new_cache = (ck, cv)
-    out = out.reshape(B, S, H * dh) @ p["wo"]
-    return out, new_cache
+    out = merge_last(out) @ wo
+    return constrain(out, "act_resid"), new_cache
 
 
 # ------------------------------------------------------------------- ffn
@@ -309,9 +500,13 @@ def ffn_init(gen: torch.Generator, d: int, f: int, lead=(), device=None):
             "wo": _he(gen, (*lead, f, d), device=device)}
 
 
-def ffn_apply(p, x):
-    h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-    return h @ p["wo"]
+def ffn_apply(p, x, constrain=lambda t, *a: t):
+    wi = constrain(p["wi"], "param:ffn/wi")
+    wg = constrain(p["wg"], "param:ffn/wg")
+    wo = constrain(p["wo"], "param:ffn/wo")
+    h = F.silu(x @ wg) * (x @ wi)
+    h = constrain(h, "act_ffn")
+    return constrain(h @ wo, "act_resid")
 
 
 # ------------------------------------------------------------- embedding
@@ -323,22 +518,102 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed_apply(table, tokens):
+    if isinstance(table, DTensor):
+        return _embed_sharded(table, tokens).to(COMPUTE_DTYPE)
     return table[tokens].to(COMPUTE_DTYPE)
 
 
+def _embed_sharded(table, tokens):
+    """``table[tokens]`` on a DTensor table, on each rank's shards
+    (``launch.mesh.local_call``; DTensor's rule for the gradient's
+    ``index_put`` fails on some torch releases): where the vocabulary is
+    sharded each rank looks up the tokens its rows hold and zeros
+    elsewhere, and the result is their sum (``Partial``, exact: one term
+    is not zero); where the width is sharded the rows come out sharded;
+    the tokens keep their own sharding on the other mesh dims."""
+    mesh = table.device_mesh
+    tpl = tuple(Replicate() if isinstance(p, Partial) else p
+                for p in table.placements)
+    vocab = {i for i, p in enumerate(tpl)
+             if isinstance(p, Shard) and p.dim == 0}
+    width = {i for i, p in enumerate(tpl)
+             if isinstance(p, Shard) and p.dim == 1}
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim)
+    ipl = tuple(Replicate() if i in vocab or i in width or
+                not isinstance(p, Shard) else p
+                for i, p in enumerate(tokens.placements))
+    opl = tuple(Partial() if i in vocab else
+                Shard(tokens.ndim) if i in width else p
+                for i, p in enumerate(ipl))
+    lo, n = shard_range(table.shape[0], mesh, tpl, 0)
+
+    def run(t, ix):
+        ix = ix - lo
+        ok = (ix >= 0) & (ix < n)
+        return torch.where(ok[..., None], t[ix.clamp(0, max(n - 1, 0))], 0)
+
+    return local_call(run, (table, tokens), (tpl, ipl), opl, mesh)
+
+
 def unembed_apply(table, x):
-    """Tied unembedding: logits in fp32 for a stable softmax."""
-    return torch.einsum("bsd,vd->bsv", x.float(), table.float())
+    """Tied unembedding: logits in fp32 for a stable softmax (on a mesh
+    their gradient pinned to their placements, ``mesh.pin_grad``)."""
+    return pin_grad(torch.einsum("bsd,vd->bsv", x.float(), table.float()))
 
 
 # ---------------------------------------------------------------- losses
+def take_last(x, idx):
+    """``x.gather(-1, idx)``.  On a DTensor it runs on each rank's shards
+    (``launch.mesh.local_call``; DTensor's own rule for a gather fails
+    here): where the last axis (the vocabulary of the logits) is sharded,
+    each rank gathers the indices its shard holds and zeros elsewhere, and
+    the result is their sum (``Partial``), exact since one term is not
+    zero; the gradient goes to the rank that holds the index."""
+    if not isinstance(x, DTensor):
+        return x.gather(-1, idx)
+    last, mesh = x.ndim - 1, x.device_mesh
+    pl = tuple(Replicate() if isinstance(p, Partial) else p
+               for p in x.placements)
+    split = {i for i, p in enumerate(pl)
+             if isinstance(p, Shard) and p.dim in (last, -1)}
+    ipl = tuple(Replicate() if i in split else p for i, p in enumerate(pl))
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim)
+    lo, n = shard_range(x.shape[last], mesh, pl, last)
+
+    def run(xl, il):
+        il = il - lo
+        ok = (il >= 0) & (il < n)
+        return torch.where(ok, xl.gather(-1, il.clamp(0, max(n - 1, 0))), 0)
+
+    opl = tuple(Partial() if i in split else p for i, p in enumerate(pl))
+    return local_call(run, (x, idx), (pl, ipl), opl, mesh)
+
+
+def merge_last(x):
+    """``x`` (..., a, b) reshaped to (..., a * b).  On a DTensor the
+    reshape runs on each rank's shard, so that its gradient arrives
+    placed as ``x`` is (``a`` sharded where ``x`` is, ``b`` whole): DTensor
+    cannot unflatten a gradient sharded unevenly over ``a`` (24 heads over
+    a 16-way axis)."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    a = x.ndim - 2
+    pl = tuple(Replicate() if isinstance(p, Partial) or
+               (isinstance(p, Shard) and p.dim in (a + 1, -1)) else p
+               for p in x.placements)
+    return local_call(lambda t: t.reshape(*t.shape[:-2], -1), (x,), (pl,),
+                      pl, x.device_mesh)
+
+
 def _nll(logits, labels, z_loss: float):
     """Per-position loss and mask: ``lse - gold + z_loss * lse^2``; labels
     < 0 are padding (their loss is computed at label 0 and masked)."""
     mask = labels >= 0
     gold_idx = labels.clamp(min=0).long()[..., None]
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, gold_idx)[..., 0]
+    gold = take_last(logits, gold_idx)[..., 0]
     return lse - gold + z_loss * lse ** 2, mask
 
 

@@ -28,7 +28,9 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..launch.mesh import local_call, pin_grad
 from . import layers as L
 from .layers import _he, layer_params
 
@@ -67,30 +69,39 @@ class Mamba2Config:
         return self.param_count()
 
 
+def _block_weights(gen: torch.Generator, cfg: Mamba2Config, lead, dev):
+    D, DI, G, N, H = (cfg.d_model, cfg.d_inner, cfg.n_groups, cfg.d_state,
+                      cfg.n_heads)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "ln": L.rmsnorm_init(D, device=dev, lead=lead),
+        "in_proj": _he(gen, (*lead, D, 2 * DI + 2 * G * N + H), device=dev),
+        "conv_w": _he(gen, (*lead, cfg.conv_width, DI + 2 * G * N),
+                      device=dev),
+        "A_log": torch.zeros((*lead, H), **f32),
+        "dt_bias": torch.zeros((*lead, H), **f32),
+        "D_skip": torch.ones((*lead, H), **f32),
+        "gate_norm": L.rmsnorm_init(DI, device=dev, lead=lead),
+        "out_proj": _he(gen, (*lead, DI, D), device=dev),
+    }
+
+
+def init_layer(gen: torch.Generator, cfg: Mamba2Config, device=None):
+    """One block's weights (the JAX package's ``init_layer``),
+    unstacked."""
+    return _block_weights(gen, cfg, (), device or gen.device)
+
+
 def init(gen: torch.Generator, cfg: Mamba2Config, device=None):
     """Random parameters on ``device`` (default: ``gen``'s; ``"meta"``
     gives the shapes without storage), the JAX package's tree: every
     block's weights stacked on a leading ``L`` axis, ``A_log``,
     ``dt_bias`` and ``D_skip`` fp32, the rest bf16."""
-    D, DI, G, N, H = (cfg.d_model, cfg.d_inner, cfg.n_groups, cfg.d_state,
-                      cfg.n_heads)
-    lead, dev = (cfg.n_layers,), device or gen.device
-    f32 = dict(dtype=torch.float32, device=dev)
+    dev = device or gen.device
     return {
-        "embed": L.embed_init(gen, cfg.vocab, D, device=dev),
-        "layers": {
-            "ln": L.rmsnorm_init(D, device=dev, lead=lead),
-            "in_proj": _he(gen, (*lead, D, 2 * DI + 2 * G * N + H),
-                           device=dev),
-            "conv_w": _he(gen, (*lead, cfg.conv_width, DI + 2 * G * N),
-                          device=dev),
-            "A_log": torch.zeros((*lead, H), **f32),
-            "dt_bias": torch.zeros((*lead, H), **f32),
-            "D_skip": torch.ones((*lead, H), **f32),
-            "gate_norm": L.rmsnorm_init(DI, device=dev, lead=lead),
-            "out_proj": _he(gen, (*lead, DI, D), device=dev),
-        },
-        "final_norm": L.rmsnorm_init(D, device=dev),
+        "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, device=dev),
+        "layers": _block_weights(gen, cfg, (cfg.n_layers,), dev),
+        "final_norm": L.rmsnorm_init(cfg.d_model, device=dev),
     }
 
 
@@ -122,6 +133,35 @@ def _repeat_groups(x, rep: int):
 
 
 def ssd_chunked(x, dt, A, B, C, cfg: Mamba2Config, h0=None):
+    """SSD scan (:func:`ssd_local`); on DTensors it runs on each rank's
+    shards (``launch.mesh.local_call``), exact per sequence and per head:
+    x, dt, A and h0 keep their batch and head shardings, B and C their
+    batch's (the groups they hold serve every head), the sequence is
+    gathered (the chunk recurrence runs along it)."""
+    if not isinstance(x, DTensor):
+        return ssd_local(x, dt, A, B, C, cfg, h0)
+
+    def pl(batch_dim, head_dim):
+        """x's batch and head shardings at these dims of another tensor
+        (None: it has no such dim), the rest replicated."""
+        return tuple(
+            Shard(batch_dim) if isinstance(p, Shard) and p.dim == 0 and
+            batch_dim is not None else
+            Shard(head_dim) if isinstance(p, Shard) and p.dim == 2 and
+            head_dim is not None else Replicate() for p in x.placements)
+
+    args = (x, dt, A, B, C) + (() if h0 is None else (h0,))
+    ins = (pl(0, 2), pl(0, 2), pl(None, 0), pl(0, None), pl(0, None),
+           pl(0, 1))
+
+    def run(x, dt, A, B, C, h0=None):
+        return ssd_local(x, dt, A, B, C, cfg, h0)
+
+    return local_call(run, args, ins[:len(args)], (pl(0, 2), pl(0, 1)),
+                      x.device_mesh)
+
+
+def ssd_local(x, dt, A, B, C, cfg: Mamba2Config, h0=None):
     """SSD scan.  x: (Bt, S, H, P)  dt: (Bt, S, H)  B/C: (Bt, S, G, N).
 
     Returns (y, h_final) with y: (Bt, S, H, P) in x's dtype, h: (Bt, H, P,
@@ -198,40 +238,46 @@ def softplus(x):
                                           device=x.device))
 
 
-def block_apply(lp, cfg: Mamba2Config, x, *, state=None):
+def block_apply(lp, cfg: Mamba2Config, x, *, state=None,
+                constrain=lambda t, *a: t):
     """One Mamba2 block.  state: None (train) or dict(conv, ssm) of this
-    layer.  Returns (out, new_state)."""
+    layer.  Returns (out, new_state); ``constrain`` at the JAX sites,
+    ``act_ffn`` on ``xs`` and ``act_resid`` on the output."""
     Bt, S, D = x.shape
     DI, G, N, H, P = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
                       cfg.head_dim)
     xn = L.rmsnorm(lp["ln"], x)
-    zxbcdt = xn @ lp["in_proj"]
+    # on a mesh whole along the split that follows, its gradient placed so
+    # too, for in_proj's gradient product
+    zxbcdt = pin_grad(xn @ lp["in_proj"], whole_last=True)
     z, xbc, dt = torch.split(zxbcdt, [DI, DI + 2 * G * N, H], dim=-1)
     conv_state = None if state is None else state["conv"]
     xbc, new_conv = _causal_conv(xbc, lp["conv_w"], conv_state)
     xs, B_, C_ = torch.split(xbc, [DI, G * N, G * N], dim=-1)
+    xs = constrain(xs, "act_ffn")
     dt = softplus(dt.float() + lp["dt_bias"])
-    xh = xs.reshape(Bt, S, H, P)
-    B_ = B_.reshape(Bt, S, G, N)
-    C_ = C_.reshape(Bt, S, G, N)
+    xh = L.split_last(xs, H, P)
+    B_ = L.split_last(B_, G, N)
+    C_ = L.split_last(C_, G, N)
     h0 = None if state is None else state["ssm"]
     y, h_final = ssd_chunked(xh, dt, lp["A_log"], B_, C_, cfg, h0=h0)
     y = y + xh * lp["D_skip"][None, None, :, None].to(y.dtype)
-    y = y.reshape(Bt, S, DI)
+    y = L.merge_last(y)
     y = L.rmsnorm(lp["gate_norm"], y) * F.silu(z)
     out = y @ lp["out_proj"]
     new_state = None if state is None else \
         {"conv": new_conv, "ssm": h_final}
-    return out, new_state
+    return constrain(out, "act_resid"), new_state
 
 
-def run_layers(layers, cfg: Mamba2Config, x, lo: int, hi: int, states=None):
+def run_layers(layers, cfg: Mamba2Config, x, lo: int, hi: int, states=None,
+               constrain=lambda t, *a: t):
     """Blocks ``lo`` to ``hi`` of the stacked ``layers`` over the residual
     ``x``.  Training (``states`` None): each block's body under the remat
     policy ``cfg.remat``.  Decode: ``states`` (the stacked dict(conv, ssm)
     of all layers) is read, and written in place with the new states."""
     def body(x, lp):
-        return x + block_apply(lp, cfg, x)[0]
+        return x + block_apply(lp, cfg, x, constrain=constrain)[0]
 
     if states is None:
         body = L.remat(cfg.remat, body)
@@ -241,19 +287,21 @@ def run_layers(layers, cfg: Mamba2Config, x, lo: int, hi: int, states=None):
             x = body(x, lp)
             continue
         st = layer_params(states, i)
-        out, new = block_apply(lp, cfg, x, state=st)
+        out, new = block_apply(lp, cfg, x, state=st, constrain=constrain)
         x = x + out
         st["conv"].copy_(new["conv"])
         st["ssm"].copy_(new["ssm"])
     return x
 
 
-def forward(params, cfg: Mamba2Config, tokens, *, states=None):
+def forward(params, cfg: Mamba2Config, tokens, *, states=None,
+            constrain=lambda t, *a: t):
     """tokens (B, S) -> logits (B, S, V) fp32.  ``states``: None (train)
     or the stacked decode state (:func:`init_decode_state`), written in
     place and returned with the logits."""
-    x = L.embed_apply(params["embed"], tokens)
-    x = run_layers(params["layers"], cfg, x, 0, cfg.n_layers, states)
+    x = constrain(L.embed_apply(params["embed"], tokens), "act_resid")
+    x = run_layers(params["layers"], cfg, x, 0, cfg.n_layers, states,
+                   constrain)
     x = L.rmsnorm(params["final_norm"], x)
     logits = L.unembed_apply(params["embed"], x)
     return (logits, states) if states is not None else logits

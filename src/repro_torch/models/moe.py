@@ -13,8 +13,9 @@ dispatches compute the same function:
 Every dispatch keeps a token's slot in the order (token, choice) and
 drops the same pairs past an expert's capacity.  The JAX package maps its
 per-group functions over the groups with ``vmap``; here they are batched
-tensor operations over the group axis.  The JAX ``constrain`` hooks
-(sharding annotations) have no counterpart on one card.
+tensor operations over the group axis.  Each dispatch calls the JAX
+package's ``constrain(x, "moe_expert")`` hook on the expert inputs and
+outputs (G, E, C, D).
 
 The JAX package computes all of it in plain ``jnp``, with no Pallas
 kernel, and so does the port: the expert products are ``torch.einsum``
@@ -26,10 +27,13 @@ departs from the JAX arithmetic, a comment says why.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..launch.mesh import local_call
 # bound at import, as the JAX module binds it: the one-hot dispatch and
 # combine tensors stay bf16 when a caller switches the activations to fp32
 from .layers import COMPUTE_DTYPE, PARAM_DTYPE, _he
@@ -122,11 +126,63 @@ def _route(p, cfg: MoEConfig, xg):
     return torch.softmax(topv, dim=-1), topi
 
 
+def _expert_swiglu(xe, wg, wi, wo):
+    h = F.silu(_einsum("...ecd,edf->...ecf", xe, wg)) * \
+        _einsum("...ecd,edf->...ecf", xe, wi)
+    return _einsum("...ecf,efd->...ecd", h, wo)
+
+
 def _expert_ffn(p, xe):
-    """xe: (..., E, C, D) -> (..., E, C, D) (runs every expert's SwiGLU)."""
-    h = F.silu(_einsum("...ecd,edf->...ecf", xe, p["wg"])) * \
-        _einsum("...ecd,edf->...ecf", xe, p["wi"])
-    return _einsum("...ecf,efd->...ecd", h, p["wo"])
+    """xe: (..., E, C, D) -> (..., E, C, D) (runs every expert's SwiGLU).
+
+    On a DTensor xe (G, E, C, D) it runs on each rank's shards
+    (``launch.mesh.local_call``): xe keeps its sharding of the groups and
+    the experts and gathers C and D; each weight (E, ., .) is sharded on
+    the experts as xe is and gathered on the rest (the FSDP gather of the
+    weights), so no product sums partial results."""
+    if not isinstance(xe, DTensor):
+        return _expert_swiglu(xe, p["wg"], p["wi"], p["wo"])
+    xpl = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 1)
+                else Replicate() for pl in xe.placements)
+    wpl = tuple(Shard(0) if isinstance(pl, Shard) and pl.dim == 1
+                else Replicate() for pl in xpl)
+    return local_call(_expert_swiglu, (xe, p["wg"], p["wi"], p["wo"]),
+                      (xpl, wpl, wpl, wpl), xpl, xe.device_mesh)
+
+
+def _dispatch(xg, disp):
+    """The one-hot dispatch ``gsd,gsec->gecd``: (G, E, C, D).  On DTensors
+    each rank dispatches its groups to every expert (the groups' sharding
+    kept, the rest gathered; ``constrain`` then keeps its experts):
+    DTensor cannot place the product's flattened (E, C) axis."""
+    if not isinstance(xg, DTensor):
+        return _einsum("gsd,gsec->gecd", xg, disp)
+    pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for p in xg.placements)
+    return local_call(functools.partial(_einsum, "gsd,gsec->gecd"),
+                      (xg, disp), (pl, pl), pl, xg.device_mesh)
+
+
+def _combine(ye, comb):
+    """The one-hot combine ``gecd,gsec->gsd``: (G, g, D).  On DTensors
+    each rank combines its own experts' outputs (ye's sharding of the
+    groups and the experts kept, comb's matched) and the results are
+    summed over the expert shards."""
+    if not isinstance(ye, DTensor):
+        return _einsum("gecd,gsec->gsd", ye, comb)
+    ypl = tuple(p if isinstance(p, Shard) and p.dim in (0, 1) else
+                Replicate() for p in ye.placements)
+    cpl = tuple(Shard(2) if p == Shard(1) else p for p in ypl)
+    opl = tuple(Partial() if p == Shard(1) else p for p in ypl)
+    out = local_call(functools.partial(_einsum, "gecd,gsec->gsd"),
+                     (ye, comb), (ypl, cpl), opl, ye.device_mesh)
+    # summed here (an all-reduce): DTensor would otherwise reduce-scatter
+    # the sum along the groups, which the reshape to (B, S, D) that
+    # follows cannot take when they do not divide
+    summed = tuple(Replicate() if isinstance(p, Partial) else p
+                   for p in opl)
+    return out if summed == opl else out.redistribute(ye.device_mesh,
+                                                      summed)
 
 
 def _onehot_ranks(topi, E: int):
@@ -140,7 +196,7 @@ def _onehot_ranks(topi, E: int):
     return onehot, rank.reshape(G, g, k, E)
 
 
-def moe_apply_onehot(p, cfg: MoEConfig, x):
+def moe_apply_onehot(p, cfg: MoEConfig, x, constrain=lambda t, *a: t):
     """GShard one-hot dispatch.  x: (B, S, D) -> (B, S, D)."""
     B, S, D = x.shape
     xg, g = _group(x, cfg)
@@ -161,9 +217,10 @@ def moe_apply_onehot(p, cfg: MoEConfig, x):
         disp = disp + oh
         comb = comb + oh * gates[:, :, kk, None, None].to(COMPUTE_DTYPE)
 
-    xe = _einsum("gsd,gsec->gecd", xg, disp)                 # (G, E, C, D)
-    ye = _expert_ffn(p, xe)
-    out = _einsum("gecd,gsec->gsd", ye, comb)
+    xe = _dispatch(xg, disp)                                 # (G, E, C, D)
+    xe = constrain(xe, "moe_expert")
+    ye = constrain(_expert_ffn(p, xe), "moe_expert")
+    out = _combine(ye, comb)
     return out.reshape(B, S, D).to(x.dtype)
 
 
@@ -187,7 +244,7 @@ def _gather_rows(ye, slot):
     return flat[gi, slot]
 
 
-def moe_apply_sorted(p, cfg: MoEConfig, x):
+def moe_apply_sorted(p, cfg: MoEConfig, x, constrain=lambda t, *a: t):
     """Sort-based dispatch (beyond-paper): per-group stable sort by expert,
     capacity-sliced scatter into (E, C) buffers, gather-combine back."""
     B, S, D = x.shape
@@ -209,7 +266,8 @@ def moe_apply_sorted(p, cfg: MoEConfig, x):
     keep = rank < C
     slot = torch.where(keep, se * C + rank.clamp(0, C - 1), E * C)
     xe = _scatter_rows(xg, slot, st, E * C)[:, :-1].reshape(G, E, C, D)
-    ye = _expert_ffn(p, xe)
+    xe = constrain(xe, "moe_expert")
+    ye = constrain(_expert_ffn(p, xe), "moe_expert")
 
     contrib = _gather_rows(ye, slot) * (sg * keep).to(ye.dtype)[..., None]
     gi = torch.arange(G, device=dev)[:, None].expand_as(st)
@@ -220,7 +278,7 @@ def moe_apply_sorted(p, cfg: MoEConfig, x):
     return out.reshape(B, S, D).to(x.dtype)
 
 
-def moe_apply_scatter(p, cfg: MoEConfig, x):
+def moe_apply_scatter(p, cfg: MoEConfig, x, constrain=lambda t, *a: t):
     """Scatter dispatch (beyond-paper): GShard's cumsum capacity ranks,
     but tokens are scattered straight into (E, C) buffers — no (g, E, C)
     one-hot einsum and no argsort."""
@@ -237,7 +295,8 @@ def moe_apply_scatter(p, cfg: MoEConfig, x):
                        E * C).reshape(G, g * k)
     token = torch.arange(g, device=x.device).repeat_interleave(k)
     xe = _scatter_rows(xg, slot, token.expand(G, -1), E * C)
-    ye = _expert_ffn(p, xe[:, :-1].reshape(G, E, C, D))
+    xe = constrain(xe[:, :-1].reshape(G, E, C, D), "moe_expert")
+    ye = constrain(_expert_ffn(p, xe), "moe_expert")
 
     contrib = _gather_rows(ye, slot).reshape(G, g, k, D)
     w = (gates * keep).to(contrib.dtype)[..., None]
@@ -249,10 +308,10 @@ _DISPATCH = {"onehot": moe_apply_onehot, "sort": moe_apply_sorted,
              "scatter": moe_apply_scatter}
 
 
-def moe_apply(p, cfg: MoEConfig, x):
+def moe_apply(p, cfg: MoEConfig, x, constrain=lambda t, *a: t):
     if cfg.dispatch not in _DISPATCH:
         raise ValueError(cfg.dispatch)
-    return _DISPATCH[cfg.dispatch](p, cfg, x)
+    return _DISPATCH[cfg.dispatch](p, cfg, x, constrain)
 
 
 def aux_load_balance_loss(p, cfg: MoEConfig, x) -> torch.Tensor:

@@ -19,6 +19,11 @@ So on the card one training step launches the flash forward once a layer
 under ``"none"`` and twice under ``"dots"`` and ``"full"`` (the recompute),
 and the flash backward once a layer.  A mixture-of-experts layer
 (``cfg.moe``) runs ``moe.moe_apply`` in the FFN's place.
+
+``forward`` and ``loss`` take the JAX package's ``constrain`` hook and
+call it at its sites: ``act_resid`` on the embedding, and through
+``_block`` in every layer (``layers.attn_apply``, ``layers.ffn_apply``,
+``moe.moe_apply``).
 """
 from __future__ import annotations
 
@@ -89,6 +94,20 @@ class LMConfig:
         return self.n_layers * per_layer + self.vocab * D + D
 
 
+def init_layer(gen: torch.Generator, cfg: LMConfig, device=None):
+    """One layer's weights (the JAX package's ``init_layer``): ``ln1``,
+    ``ln2``, ``attn`` and ``ffn`` (or ``moe``), unstacked."""
+    dev = device or gen.device
+    p = {"ln1": L.rmsnorm_init(cfg.d_model, device=dev),
+         "ln2": L.rmsnorm_init(cfg.d_model, device=dev),
+         "attn": L.attn_init(gen, cfg.attn, device=dev)}
+    if cfg.moe:
+        p["moe"] = moe_init(gen, cfg.moe, device=dev)
+    else:
+        p["ffn"] = L.ffn_init(gen, cfg.d_model, cfg.d_ff, device=dev)
+    return p
+
+
 def init(gen: torch.Generator, cfg: LMConfig, device=None):
     """Random bf16 parameters on ``device`` (default: ``gen``'s), the JAX
     package's tree with every layer weight stacked on a leading ``L``
@@ -115,30 +134,33 @@ def init(gen: torch.Generator, cfg: LMConfig, device=None):
     return p
 
 
-def _block(cfg: LMConfig, lp, x, positions, kv_cache=None, cache_index=None):
+def _block(cfg: LMConfig, constrain, lp, x, positions, kv_cache=None,
+           cache_index=None):
     h, new_cache = L.attn_apply(lp["attn"], cfg.attn,
                                 L.rmsnorm(lp["ln1"], x), positions,
-                                kv_cache=kv_cache, cache_index=cache_index)
+                                kv_cache=kv_cache, cache_index=cache_index,
+                                constrain=constrain)
     x = x + h
     hn = L.rmsnorm(lp["ln2"], x)
     if cfg.moe:
-        x = x + moe_apply(lp["moe"], cfg.moe, hn)
+        x = x + moe_apply(lp["moe"], cfg.moe, hn, constrain)
     else:
-        x = x + L.ffn_apply(lp["ffn"], hn)
+        x = x + L.ffn_apply(lp["ffn"], hn, constrain)
     return x, new_cache
 
 
-def _embed(params, tokens, prefix_embed):
+def _embed(params, tokens, prefix_embed, constrain):
     """The token embeddings, ``prefix_embed`` (B, P, D) cast to their
-    dtype and concatenated in front when given."""
+    dtype and concatenated in front when given; ``act_resid``."""
     x = L.embed_apply(params["embed"], tokens)
     if prefix_embed is not None:
         x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
-    return x
+    return constrain(x, "act_resid")
 
 
-def forward(params, cfg: LMConfig, tokens, *, kv_caches=None,
-            cache_index: Optional[int] = None, prefix_embed=None):
+def forward(params, cfg: LMConfig, tokens, *, constrain=lambda t, *a: t,
+            kv_caches=None, cache_index: Optional[int] = None,
+            prefix_embed=None):
     """tokens: (B, S) int -> logits (B, P + S, V) fp32.
 
     ``kv_caches``: stacked (k, v) each (L, B, T, K, dh), written in place
@@ -146,7 +168,7 @@ def forward(params, cfg: LMConfig, tokens, *, kv_caches=None,
     embeddings prepended to the token embeddings (the VLM's image
     patches); positions run over the whole P + S from ``cache_index``.
     """
-    x = _embed(params, tokens, prefix_embed)
+    x = _embed(params, tokens, prefix_embed, constrain)
     B, S, D = x.shape
     start = 0 if cache_index is None else int(cache_index)
     positions = (start + torch.arange(S, dtype=torch.int32,
@@ -155,7 +177,7 @@ def forward(params, cfg: LMConfig, tokens, *, kv_caches=None,
         lp = layer_params(params["layers"], i)
         cache = None if kv_caches is None else \
             (kv_caches[0][i], kv_caches[1][i])
-        x, _ = _block(cfg, lp, x, positions, cache, cache_index)
+        x, _ = _block(cfg, constrain, lp, x, positions, cache, cache_index)
     x = L.rmsnorm(params["final_norm"], x)
     head = params.get("lm_head", params["embed"])
     logits = L.unembed_apply(head, x)
@@ -163,16 +185,16 @@ def forward(params, cfg: LMConfig, tokens, *, kv_caches=None,
 
 
 # ------------------------------------------------------------------ training
-def _trunk(params, cfg: LMConfig, tokens, prefix_embed=None):
+def _trunk(params, cfg: LMConfig, tokens, prefix_embed, constrain):
     """Embedding (``prefix_embed`` in front, as in :func:`forward`), the
     layers under the remat policy, the final norm: (B, P + S, D)."""
-    x = _embed(params, tokens, prefix_embed)
+    x = _embed(params, tokens, prefix_embed, constrain)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
 
     def body(x, lp):
-        return _block(cfg, lp, x, positions)[0]
+        return _block(cfg, constrain, lp, x, positions)[0]
 
     body = L.remat(cfg.remat, body)
     for i in range(cfg.n_layers):
@@ -180,15 +202,15 @@ def _trunk(params, cfg: LMConfig, tokens, prefix_embed=None):
     return L.rmsnorm(params["final_norm"], x)
 
 
-def loss(params, cfg: LMConfig, tokens, labels, *, prefix_embed=None,
-         prefix_drop: int = 0):
+def loss(params, cfg: LMConfig, tokens, labels, *,
+         constrain=lambda t, *a: t, prefix_embed=None, prefix_drop: int = 0):
     """Training loss, the token mean (labels < 0 are padding); the chunked
     big-vocabulary cross-entropy when ``cfg.loss_chunk > 0``.  The first
     ``prefix_drop`` positions (the VLM's image prefix, ``prefix_embed``)
     are dropped before the unembedding: the JAX function unembeds them
     too when ``loss_chunk == 0`` and slices the logits, the same logits
     kept, since the unembedding is per row."""
-    x = _trunk(params, cfg, tokens, prefix_embed)[:, prefix_drop:]
+    x = _trunk(params, cfg, tokens, prefix_embed, constrain)[:, prefix_drop:]
     head = params.get("lm_head", params["embed"])
     if cfg.loss_chunk <= 0:
         return L.softmax_xent(L.unembed_apply(head, x), labels)

@@ -52,12 +52,14 @@ def project(params, patches):
 
 
 def forward(params, cfg: VLMConfig, tokens, patches: Optional[torch.Tensor],
-            *, kv_caches=None, cache_index: Optional[int] = None):
+            *, kv_caches=None, cache_index: Optional[int] = None,
+            constrain=lambda t, *a: t):
     """tokens (B, S_text); patches (B, P, d_vision) stub embeddings, or
     None -> logits (B, P + S_text, V) fp32 (and the caches with
     ``kv_caches``).  The logits cover the image prefix's positions too, as
     in the JAX function.  Decode passes ``patches=None``: the prefix is
     already in the KV cache."""
     prefix = None if patches is None else project(params, patches)
-    return T.forward(params, cfg.lm, tokens, kv_caches=kv_caches,
-                     cache_index=cache_index, prefix_embed=prefix)
+    return T.forward(params, cfg.lm, tokens, constrain=constrain,
+                     kv_caches=kv_caches, cache_index=cache_index,
+                     prefix_embed=prefix)

@@ -12,8 +12,11 @@ tensors of two or more dimensions are the JAX package's, with the same
 float32 arithmetic (``b1 ** t`` in float32, Python constants rounded to
 float32 where JAX's weak types round them).  The state is a dict
 ``{"step": 0-d int32, "m": tree, "v": tree}`` of the parameters' tree; the
-update is functional (new trees), as in JAX.  The global norm sums the
-leaves in JAX's order (``repro_torch.tree``).
+update is functional (new trees), as in JAX, or with ``donate=True``
+written into the old leaves' storage as each is made (JAX's donated
+buffers).  The global norm sums the leaves in JAX's order
+(``repro_torch.tree``).  The leaves may be DTensors: a donated leaf keeps
+its placements.
 """
 from __future__ import annotations
 
@@ -81,9 +84,26 @@ def _vhat_update(v, g2, b2):
     return new_v, new_v
 
 
-def step(params, opt_state, grads, cfg: OptConfig):
+def _into(old, new):
+    """``new`` written into ``old``'s storage (``old``'s placements when a
+    DTensor); returns ``old``."""
+    if hasattr(old, "placements") and \
+            tuple(new.placements) != tuple(old.placements):
+        new = new.redistribute(old.device_mesh, old.placements)
+    with torch.no_grad():
+        old.copy_(new)
+    return old
+
+
+def step(params, opt_state, grads, cfg: OptConfig, donate: bool = False):
     """One AdamW update; params stay in their storage dtype (bf16).
-    Returns (params, opt_state, {"grad_norm", "lr"})."""
+    Returns (params, opt_state, {"grad_norm", "lr"}).
+
+    ``donate``: each new parameter, m and v is written into its old
+    storage as soon as it is made, so that the peak holds one leaf's
+    temporaries and not a second tree; the returned trees are the old
+    ones, updated (the caller's old trees are the new ones, as a donated
+    JAX buffer is gone).  The values are bit-equal either way."""
     t = opt_state["step"] + 1
     flat_g = T.leaves(grads)
     gnorm = torch.sqrt(sum(g.float().square().sum() for g in flat_g))
@@ -105,9 +125,16 @@ def step(params, opt_state, grads, cfg: OptConfig):
         update = (m32 / bc1) / (torch.sqrt(vhat / bc2) + cfg.eps)
         if p.ndim >= 2:  # decoupled weight decay on matrices only
             update = update + cfg.weight_decay * p.float()
-        new_p.append((p.float() - lr * update).to(p.dtype))
-        new_m.append(m32.to(m.dtype))
+        p_new, m_new = (p.float() - lr * update).to(p.dtype), m32.to(m.dtype)
+        if donate:
+            p_new, m_new = _into(p, p_new), _into(m, m_new)
+            v_new = ({k: _into(v[k], v_new[k]) for k in v}
+                     if isinstance(v, dict) else _into(v, v_new))
+        new_p.append(p_new)
+        new_m.append(m_new)
         new_v.append(v_new)
+    if donate:
+        t = _into(opt_state["step"], t)
 
     return (T.unflatten(params, new_p),
             {"step": t, "m": T.unflatten(opt_state["m"], new_m),

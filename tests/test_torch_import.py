@@ -53,7 +53,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models.hybrid", "repro_torch.configs.llama3p2_3b",
             "repro_torch.configs.yi_6b", "repro_torch.configs.mamba2_130m",
             "repro_torch.configs.zamba2_1p2b",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.hloanalysis"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
