@@ -5,9 +5,15 @@ imports nothing from the rest of :mod:`repro_torch`, while the runtime
 and the serving CLI emit into it.  Three pillars:
 
 * :mod:`repro_torch.obs.trace` — span tree over the launch lifecycle
-  (``submit → admit → queue-wait → pack → dep-resolve → dispatch →
-  device-execute → counter-sync → complete``) with Chrome-trace /
-  Perfetto export.  Process global: :data:`TRACER`.
+  (``loop.lock-wait → submit → admit → queue-wait → pack → dep-resolve
+  → dispatch-wait → dispatch → device-execute → merge → counter-sync →
+  complete``, with ``launch-run`` over a launch's run and ``loop.idle``
+  on the serving loop's thread) with Chrome-trace / Perfetto export, a
+  span stack and a ``tid`` a thread, and the wall clock of its zero to
+  lay it over a ``torch.profiler`` trace; while such a profiler records
+  a thread, that thread's spans are also events in its trace (the hook is
+  installed by :mod:`repro_torch.runtime`, so this package imports no
+  torch).  Process global: :data:`TRACER`.
 * :mod:`repro_torch.obs.metrics` — counters / gauges / exact-quantile
   histograms.  Process global: :data:`METRICS`.
 

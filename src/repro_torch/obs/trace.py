@@ -1,15 +1,21 @@
 """Launch-lifecycle tracing: a process span tree + Chrome-trace export (a
-copy of ``repro.obs.trace``, which the port does not import).
+copy of ``repro.obs.trace``, which the port does not import, extended to
+the serving loop's two threads and to the host profiler's trace).
 
-:class:`Tracer` records two kinds of events:
+:class:`Tracer` records three kinds of events:
 
-* **Spans** — nested context-managed intervals on the runtime's host
-  thread (``drain`` → ``window`` → ``pack`` / ``dep-resolve`` /
-  ``dispatch`` / ``device-execute`` → ``counter-sync`` →
-  ``complete``).  Spans carry attributes (tenant, ticket, bucket,
-  n_blocks, predicted vs observed cycles) settable after entry via
-  :meth:`Span.set`, and the finished tree is inspectable as
-  ``tracer.roots`` for tests.
+* **Spans** — nested context-managed intervals (``drain`` → ``window`` →
+  ``pack`` / ``dep-resolve`` / ``dispatch`` / ``device-execute`` →
+  ``merge`` / ``counter-sync`` → ``complete``).  Each thread nests its
+  spans on a stack of its own, and each span records its thread: the
+  serving loop's thread drains and waits for work (``loop.idle``) while
+  a client's thread waits for the loop's lock (``loop.lock-wait``).
+  Spans carry attributes (tenant, ticket, bucket, n_blocks, predicted
+  vs observed cycles) settable after entry via :meth:`Span.set`, and the
+  finished tree is inspectable as ``tracer.roots`` for tests.
+  Retroactive spans (:meth:`Tracer.timed_span`) attach an interval
+  measured from stamps: a launch's ``queue-wait``, ``dispatch-wait`` and
+  ``launch-run``.
 * **Async events** — begin/end pairs keyed by ``(category, id)`` that
   may overlap arbitrarily: one per launch lifecycle, opened at
   ``submit`` and closed at completion (or drop), so a drain's trace
@@ -22,25 +28,39 @@ copy of ``repro.obs.trace``, which the port does not import).
 
 ``export`` writes Chrome-trace / Perfetto JSON (load ``trace.json`` in
 ``chrome://tracing`` or https://ui.perfetto.dev): spans become complete
-(``"ph": "X"``) events on the runtime track, async events become
-``"b"``/``"e"`` pairs on the launch track, counter samples become
-``"C"`` events on their own named tracks.
+(``"ph": "X"``) events, one ``tid`` a thread (the thread that called
+``start()`` is tid 1, others count up from 4, each named by a
+``thread_name`` metadata event when more than one thread recorded),
+async events become ``"b"``/``"e"`` pairs on the launch track (tid 2),
+counter samples become ``"C"`` events on their own named tracks (tid
+3).  ``otherData["t0_unix_ns"]`` is the wall clock of the tracer's zero:
+an event at ``ts`` µs happened at ``t0_unix_ns / 1e3 + ts`` µs of the
+Unix epoch, the clock a ``torch.profiler`` trace stamps as
+``baseTimeNanoseconds / 1e3 + ts``, so the two lay over each other.
 
 A disabled tracer (the default) returns one shared null span whose
 ``__enter__``/``set`` are no-ops — the runtime instruments its hot
-paths unconditionally and pays one boolean check when tracing is off.
+paths unconditionally and pays one boolean check when tracing is off,
+and one flag check more for the host profiler.  Once the runtime has
+installed the profiler's hook (:func:`annotate_with`), a span opened on
+a thread that a ``torch.profiler`` records is also a host event of its
+name in that profiler's trace, the tracer on or off.
 Nothing here touches a device array: enabling tracing can never add a
 host↔device transfer (pinned in ``tests/test_torch_obs.py``).
 
-The tracer is single-threaded by design, matching the runtime's
-host-side drain loop; spans opened from other threads would interleave
-on the one stack.
+Threads share the tree's roots, the async and counter records (each an
+append, atomic under the interpreter's lock) and nothing else.
+``clear()``/``start()`` from one thread while another holds a span open
+gives every thread a fresh stack: the open span closes into the old
+tree, and the thread's next span is a root of the new one.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 def _json_safe(v):
@@ -56,23 +76,60 @@ def _json_safe(v):
         return str(v)
 
 
+# ---------------------------------------------------- the host profiler
+
+class _NoProfiler:
+    """The profiler's flag until the runtime installs the real one."""
+
+    _is_profiler_enabled = False
+
+
+#: an object whose ``_is_profiler_enabled`` is true while a host profiler
+#: records anywhere in the process (``torch.autograd.profiler`` once the
+#: runtime has called :func:`annotate_with`): the one flag a span checks
+_PROFILER = _NoProfiler
+#: ``name -> context manager or None``: the profiler's annotation of a
+#: span, or None where the profiler does not record the calling thread
+_ANNOTATION: Optional[Callable[[str], object]] = None
+
+
+def annotate_with(flag, annotation: Callable[[str], object]) -> None:
+    """Install the host profiler's hook: ``flag._is_profiler_enabled``
+    says whether a profiler may be recording, ``annotation(name)`` gives
+    the context manager that marks ``name`` in its trace (None where it
+    does not record the calling thread).  The runtime installs
+    ``torch.autograd.profiler``'s, so this module imports no torch."""
+    global _PROFILER, _ANNOTATION
+    _PROFILER, _ANNOTATION = flag, annotation
+
+
 class Span:
     """One interval in the span tree; a context manager.
 
     ``t0``/``t1`` are seconds on the tracer's clock (perf_counter
-    relative to the tracer's start).  ``set(**attrs)`` merges
-    attributes at any point before or after exit.
+    relative to the tracer's start); ``thread`` is the tid of the thread
+    that recorded it (1 for the thread that started the tracer).
+    ``set(**attrs)`` merges attributes at any point before or after
+    exit.  ``note``, where a host profiler records the thread, is the
+    profiler's annotation of the span, entered and exited with it; a
+    span with a note and no ``tracer`` (a disabled tracer's) records
+    nothing in the tree.
     """
 
-    __slots__ = ("tracer", "name", "attrs", "children", "t0", "t1")
+    __slots__ = ("tracer", "name", "attrs", "children", "t0", "t1",
+                 "thread", "_stack", "_note")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: dict) -> None:
+    def __init__(self, tracer: Optional["Tracer"], name: str, attrs: dict,
+                 note=None) -> None:
         self.tracer = tracer
         self.name = name
         self.attrs = attrs
         self.children: List["Span"] = []
         self.t0: Optional[float] = None
         self.t1: Optional[float] = None
+        self.thread: Optional[int] = None
+        self._stack: Optional[List["Span"]] = None
+        self._note = note
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
@@ -80,14 +137,23 @@ class Span:
 
     def __enter__(self) -> "Span":
         tr = self.tracer
-        self.t0 = tr._now()
-        (tr._stack[-1].children if tr._stack else tr.roots).append(self)
-        tr._stack.append(self)
+        if tr is not None:
+            th = tr._thread()
+            self.t0 = tr._now()
+            self.thread = th.tid
+            stack = self._stack = th.stack
+            (stack[-1].children if stack else tr.roots).append(self)
+            stack.append(self)
+        if self._note is not None:
+            self._note.__enter__()
         return self
 
     def __exit__(self, *exc) -> None:
-        self.t1 = self.tracer._now()
-        self.tracer._stack.pop()
+        if self._note is not None:
+            self._note.__exit__(*exc)
+        if self.tracer is not None:
+            self.t1 = self.tracer._now()
+            self._stack.pop()
 
 
 class _NullSpan:
@@ -125,13 +191,24 @@ class Tracer:
 
     def clear(self) -> "Tracer":
         self.roots: List[Span] = []
-        self._stack: List[Span] = []
+        #: tid -> thread name: 1 for the thread that cleared (started)
+        #: the tracer, the others from 4 (2 and 3 are the launch and
+        #: counter tracks) in the order they first recorded
+        home = threading.current_thread()
+        self._home = home.ident
+        self._names: Dict[int, str] = {1: home.name}
+        self._tids = itertools.count(4)
+        #: each thread's ``tid`` and span ``stack``, fresh for every
+        #: thread from here on (set after the names, which it joins)
+        self._local = threading.local()
         #: finished async records: (ph, cat, id, name, ts, attrs)
         self._async: List[Tuple[str, str, str, str, float, dict]] = []
         self._open_async: Dict[Tuple[str, str], str] = {}
         #: counter-track samples: (track name, ts, {series: value})
         self._counters: List[Tuple[str, float, dict]] = []
         self._t0 = time.perf_counter()
+        #: the wall clock at ``_t0`` (ns of the Unix epoch)
+        self._t0_unix_ns = time.time_ns()
         return self
 
     def start(self) -> "Tracer":
@@ -146,31 +223,49 @@ class Tracer:
     def _now(self) -> float:
         return time.perf_counter() - self._t0
 
+    def _thread(self) -> threading.local:
+        """The calling thread's ``tid`` and span ``stack`` in this epoch
+        (a tid of its own: an ident may pass to a new thread once its
+        owner has ended)."""
+        loc = self._local
+        if not hasattr(loc, "stack"):
+            th = threading.current_thread()
+            loc.tid = 1 if th.ident == self._home else next(self._tids)
+            self._names[loc.tid] = th.name
+            loc.stack = []
+        return loc
+
     # ------------------------------------------------------------- events
 
     def span(self, name: str, **attrs):
-        """Open a child span of whatever span is currently entered.
-        Use as ``with tracer.span("pack", window=i) as sp: ...``."""
+        """Open a child span of whatever span the calling thread has
+        entered.  Use as ``with tracer.span("pack", window=i) as sp:
+        ...``.  Disabled, it hands out :data:`NULL_SPAN`, or, on a
+        thread a host profiler records, a span that only annotates the
+        profiler's trace."""
+        note = _ANNOTATION(name) if _PROFILER._is_profiler_enabled else None
         if not self.enabled:
-            return NULL_SPAN
-        return Span(self, name, attrs)
+            return NULL_SPAN if note is None else Span(None, name, attrs, note)
+        return Span(self, name, attrs, note)
 
     def timed_span(self, name: str, t0_s: float, t1_s: float,
                    root: bool = False, **attrs) -> None:
         """Attach an already-measured interval (wall perf_counter
-        seconds) as a closed child of the current span — used for
-        retroactive phases like per-launch queue-wait, whose start
-        predates the drain's own spans.  ``root=True`` attaches at the
-        top level instead: the caller knows the interval overlaps
-        *sibling* scopes (e.g. a queue wait spanning an earlier partial
-        drain), so nesting it under the current span would mis-parent
-        it."""
+        seconds) as a closed child of the calling thread's current
+        span — used for retroactive phases like per-launch queue-wait,
+        whose start predates the drain's own spans.  ``root=True``
+        attaches at the top level instead: the caller knows the interval
+        overlaps *sibling* scopes (e.g. a queue wait spanning an earlier
+        partial drain), so nesting it under the current span would
+        mis-parent it."""
         if not self.enabled:
             return
+        th = self._thread()
         sp = Span(self, name, attrs)
         sp.t0 = t0_s - self._t0
         sp.t1 = t1_s - self._t0
-        (self._stack[-1].children if self._stack and not root else
+        sp.thread = th.tid
+        (th.stack[-1].children if th.stack and not root else
          self.roots).append(sp)
 
     def begin_async(self, cat: str, id_, name: str, **attrs) -> None:
@@ -207,7 +302,7 @@ class Tracer:
         t0 = span.t0 or 0.0
         t1 = span.t1 if span.t1 is not None else t0
         out.append({"name": span.name, "ph": "X", "cat": "runtime",
-                    "pid": 1, "tid": 1, "ts": t0 * 1e6,
+                    "pid": 1, "tid": span.thread or 1, "ts": t0 * 1e6,
                     "dur": max(t1 - t0, 0.0) * 1e6,
                     "args": _json_safe(span.attrs)})
         for c in span.children:
@@ -216,6 +311,10 @@ class Tracer:
     def to_chrome(self) -> dict:
         """The Chrome-trace/Perfetto JSON object (not yet serialized)."""
         events: List[dict] = []
+        if len(self._names) > 1:
+            events += [{"name": "thread_name", "ph": "M", "pid": 1,
+                        "tid": tid, "args": {"name": name}}
+                       for tid, name in sorted(self._names.items())]
         for root in self.roots:
             self._walk(root, events)
         for ph, cat, id_, name, ts, attrs in self._async:
@@ -227,7 +326,8 @@ class Tracer:
                            "pid": 1, "tid": 3, "ts": ts * 1e6,
                            "args": _json_safe(values)})
         return {"traceEvents": events, "displayTimeUnit": "ms",
-                "otherData": {"producer": "repro_torch.obs"}}
+                "otherData": {"producer": "repro_torch.obs",
+                              "t0_unix_ns": self._t0_unix_ns}}
 
     def export(self, path: str) -> dict:
         """Write ``to_chrome()`` to ``path``; returns the dict."""

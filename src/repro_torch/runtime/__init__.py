@@ -21,7 +21,10 @@ the multi-tenant serving layer (port of ``repro.runtime``).
 * :mod:`loadgen` — seeded open- and closed-loop load generation.
 
 Every layer emits into :mod:`repro_torch.obs`; its globals are
-re-exported here.
+re-exported here.  Importing the runtime installs ``torch.profiler``'s
+hook in :mod:`repro_torch.obs.trace`: while a profiler records a thread,
+every span that thread opens is also an event of its name in the
+profiler's trace.
 """
 from .registry import (CODE_BUCKETS, GMEM_MIN_WORDS, SEED_CYCLES_PER_INSTR,
                        WARP_BUCKETS, CostEstimate, CostModel, Footprint,
@@ -44,6 +47,23 @@ from .loadgen import (Arrival, LoadReport, TenantReport, TenantSpec,
                       WorkItem, build_arrivals, run_closed_loop,
                       run_open_loop)
 from ..obs import METRICS, TRACER, MetricsRegistry, Tracer
+from ..obs import trace as _trace
+
+import torch as _torch
+import torch.autograd.profiler as _torch_profiler
+
+
+def _profiler_annotation(name: str):
+    """``torch.profiler``'s record of a span ``name``, where the profiler
+    records the calling thread (only the thread that started it is
+    recorded): the fast record function, a host ``cpu_op`` event of the
+    span's name at about a tenth of ``record_function``'s cost."""
+    if _torch.autograd._profiler_enabled():
+        return _torch._C._profiler._RecordFunctionFast(name)
+    return None
+
+
+_trace.annotate_with(_torch_profiler, _profiler_annotation)
 
 __all__ = [
     "AdmissionError", "Arrival", "BLOCK_SCHED_OVERHEAD", "BalancedDrain",

@@ -49,9 +49,12 @@ Host<->device crossings are counted at the reference's three seams
 memory that is not yet a tensor on its device, ``counter_syncs`` at the
 one counter fetch of a :class:`DeviceGrid`, ``gmem_syncs`` per launch
 materialized by ``to_results(host_gmem=True)``.  Each dispatch group runs
-in a ``"device-execute"`` span and the counter fetch in a
-``"counter-sync"`` span of :data:`repro_torch.obs.TRACER`; both are host
-bookkeeping and add no synchronizing call.
+in a ``"device-execute"`` span, its merge of the positions' writes in
+``"merge"`` spans inside it (one a group, or on the sharded path one for
+each shard's last writers, each cross-shard fold and the final copy),
+and the counter fetch in a ``"counter-sync"`` span of
+:data:`repro_torch.obs.TRACER`; all are host bookkeeping and add no
+synchronizing call.
 """
 from __future__ import annotations
 
@@ -397,8 +400,9 @@ def run_groups(cfg: MachineConfig, n_warps: int, n_sm: int, chunk: int,
                     cfg, n_warps, codes, geom, snap, records=sched.records,
                     geom_dev=sched.geom_dev[lo:hi])
             # position-order merge: later positions overwrite earlier ones
-            for p, li in enumerate(geom[:, 0].tolist()):
-                gmems[li] = torch.where(wrt[p], mem[p], gmems[li])
+            with TRACER.span("merge", n_positions=hi - lo):
+                for p, li in enumerate(geom[:, 0].tolist()):
+                    gmems[li] = torch.where(wrt[p], mem[p], gmems[li])
             cost = ctr[:, C_CYCLES].to(torch.int64) + BLOCK_SCHED_OVERHEAD
             sm_cyc.index_add_(0, sched.sm_ids[lo:hi], cost)
         ctr_groups.append(ctr)
@@ -603,20 +607,24 @@ def run_groups_sharded(cfg: MachineConfig, n_warps: int, n_sm: int,
                             cfg, n_warps, rep.codes, geom[a:b], snap,
                             records=rep.records,
                             geom_dev=rep.geom_dev[a:b])
-                    last, val = _last_writer(mem, wrt, geom[a:b, 0],
-                                             order[a:b], gmems.shape)
+                    with TRACER.span("merge", step="last-writer",
+                                     n_positions=b - a):
+                        last, val = _last_writer(mem, wrt, geom[a:b, 0],
+                                                 order[a:b], gmems.shape)
                     cost = ctr[:, C_CYCLES].to(torch.int64) \
                         + BLOCK_SCHED_OVERHEAD
                     sm_cyc[s].index_add_(0, rep.local_sm[a:b], cost)
                 pieces.append(_to(ctr, home))
                 # cross-shard combine: the largest writing position wins
-                last, val = _to(last, home), _to(val, home)
-                if best is None:
-                    best, win = last, val
-                else:
-                    win = torch.where(last > best, val, win)
-                    best = torch.maximum(best, last)
-            gmems.copy_(torch.where(best >= 0, win, gmems))
+                with TRACER.span("merge", step="fold"):
+                    last, val = _to(last, home), _to(val, home)
+                    if best is None:
+                        best, win = last, val
+                    else:
+                        win = torch.where(last > best, val, win)
+                        best = torch.maximum(best, last)
+            with TRACER.span("merge", step="copy"):
+                gmems.copy_(torch.where(best >= 0, win, gmems))
     return (torch.cat(pieces).index_select(0, sched.inv),
             torch.cat([_to(c, home) for c in sm_cyc]))
 

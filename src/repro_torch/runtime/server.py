@@ -154,8 +154,11 @@ class _LaunchTiming:
 
     Feeds the server's latency histograms: total = complete − submit,
     queue-wait = packed − submit, device = complete − dispatched (the
-    sub-batch's execute+materialize extent).  Popped at resolution,
-    shed or drop; purely host-side.  ``deferred`` marks a launch a
+    sub-batch's execute+materialize extent); and its spans:
+    ``queue-wait`` (submit → packed), ``dispatch-wait`` (packed →
+    dispatched, its turn inside the window) and ``launch-run``
+    (dispatched → complete).  Popped at resolution, shed or drop; purely
+    host-side.  ``deferred`` marks a launch a
     partial drain (``max_windows=``) returned to the queue unpacked:
     its retroactive queue-wait span then overlaps that whole earlier
     drain, so the stamp at dequeue time attaches it at the trace root
@@ -895,6 +898,17 @@ class RuntimeServer:
                             if tm.dispatched is not None:
                                 h("server.device_s").record(
                                     t_done - tm.dispatched)
+                                # the launch's last two legs, at the top
+                                # level like a deferred queue-wait: its
+                                # sub-batch's turn in the window, its run
+                                self.tracer.timed_span(
+                                    "dispatch-wait", tm.packed,
+                                    tm.dispatched, root=True,
+                                    ticket=req.ticket, tenant=req.client)
+                                self.tracer.timed_span(
+                                    "launch-run", tm.dispatched, t_done,
+                                    root=True, ticket=req.ticket,
+                                    tenant=req.client)
                         cyc = int(np.asarray(res.cycles_per_block,
                                              np.int64).sum())
                         # observed per-tenant device time — the share

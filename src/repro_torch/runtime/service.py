@@ -12,12 +12,24 @@ window.
 
 Design notes:
 
-* **One lock serializes submit and drain.**  The tracer and the
-  server's queue bookkeeping are single-threaded by design (see
-  ``repro_torch.obs.trace``); the loop keeps that contract by taking the same
-  lock for each bounded ``drain`` call that ``submit`` takes to
-  enqueue.  Producers block for at most one drain iteration — that
-  *is* the backpressure, and why each iteration is window-bounded.
+* **One lock serializes submit and drain.**  The server's queue
+  bookkeeping is single-threaded by design; the loop keeps that
+  contract by taking the same lock for each bounded ``drain`` call that
+  ``submit`` takes to enqueue.  Producers block for at most one drain
+  iteration — that *is* the backpressure, and why each iteration is
+  window-bounded.
+* **Both threads are traced.**  The tracer keeps a span stack a thread
+  (``repro_torch.obs.trace``), so the two waits outside the lock have
+  spans: ``loop.lock-wait`` on the client's thread, from the call to
+  ``submit`` until the lock is held (``ticket``, ``tenant``, and
+  ``drains``: the loop's drains that ended meanwhile, i.e. the drain
+  running at the call, if any, and each that the loop began ahead of
+  the submitter), and
+  ``loop.idle`` on the loop's thread, each wait for work (``wait=
+  "wake"``) and each linger (``wait="linger"``).  With the server's
+  ``queue-wait``, ``dispatch-wait`` and ``launch-run`` a launch's legs
+  cover its submit call through its future's resolution, less the
+  server's own ``submit`` span.
 * **Crash isolation per window.**  A poisoned launch makes ``drain``
   raise (after requeueing the failing group and completing its
   window-mates); the loop counts the error (``loop.window_errors``) and
@@ -69,6 +81,11 @@ class ServingLoop:
 
     Also usable as a context manager (``with ServingLoop(srv) as loop``
     — the exit quiesces and stops).
+
+    Traced (the server's tracer started), each ``submit`` records a
+    ``loop.lock-wait`` span on the caller's thread and the loop's thread
+    a ``loop.idle`` span for each wait for work; each thread's spans
+    export on a ``tid`` of their own.
     """
 
     def __init__(self, server: RuntimeServer,
@@ -166,11 +183,19 @@ class ServingLoop:
         thread.  Raises :class:`~repro_torch.runtime.policy.AdmissionError`
         exactly like ``RuntimeServer.submit`` (backpressure is part of
         the serving contract, not an internal error)."""
-        with self._lock:
+        before = self.iterations
+        with self.server.tracer.span("loop.lock-wait",
+                                     tenant=client) as wait_sp:
+            self._lock.acquire()
+        try:
+            drains = self.iterations - before
             fut = self.server.submit_future(
                 code, grid, block_dim, gmem, client=client,
                 deadline_s=deadline_s, priority=priority)
             self._idle.clear()
+        finally:
+            self._lock.release()
+        wait_sp.set(ticket=fut.ticket, drains=drains)
         self._wake.set()
         return fut
 
@@ -236,7 +261,7 @@ class ServingLoop:
             self._serve()
 
     def _serve(self) -> None:
-        m = self.server.metrics
+        m, tr = self.server.metrics, self.server.tracer
         while not self._stop.is_set():
             with self._lock:
                 has_work = bool(self.server.pending()
@@ -244,17 +269,17 @@ class ServingLoop:
             if not has_work:
                 # idle: nothing to drain until a submit wakes us (or
                 # the poll interval re-checks, belt and braces)
-                self._wake.wait(timeout=self.poll_interval_s)
+                with tr.span("loop.idle", wait="wake"):
+                    self._wake.wait(timeout=self.poll_interval_s)
                 self._wake.clear()
             elif self.linger_s > 0.0:
                 # batching delay: let the window fill before draining
-                self._stop.wait(timeout=self.linger_s)
+                with tr.span("loop.idle", wait="linger"):
+                    self._stop.wait(timeout=self.linger_s)
             with self._lock:
                 if self._stop.is_set():
                     break
                 if self.server.pending() or self.server._completed:
-                    self.iterations += 1
-                    m.counter("loop.iterations").inc()
                     # queue-depth counter track: one pre-drain sample
                     # per iteration, so the trace's time-series shows
                     # the backlog each drain faced (drain itself
@@ -275,6 +300,10 @@ class ServingLoop:
                         self.window_errors += 1
                         self.last_error = e
                         m.counter("loop.window_errors").inc()
+                    # counted once the drain is over, so a submit that
+                    # waited for the lock counts each drain it met
+                    self.iterations += 1
+                    m.counter("loop.iterations").inc()
                 if not self.server.pending() and \
                         not self.server._completed:
                     # observed empty under the lock — the only place

@@ -4,7 +4,9 @@ the JAX package's where both compute the same thing.
 
 Seeded arrival schedules are equal to ``repro.runtime.build_arrivals``'s
 exactly; the CLI's drain accounting, its metrics document and its trace
-carry the JAX CLI's numbers and keys on the same arguments.  Every served
+carry the JAX CLI's numbers and keys on the same arguments (the trace
+less the port's own spans).  Traced, the loop's two threads record a
+launch's every leg.  Every served
 launch is checked against the port's sequential ``run_grid``.
 """
 import json
@@ -23,6 +25,7 @@ from repro_torch.core import scheduler
 from repro_torch.core.pipeline.state import host_numpy
 from repro_torch.core.programs import ALL
 from repro_torch.launch import gpgpu_serve as tserve
+from torch_port_spans import PORT_ONLY
 
 #: the CLI's cheapest workload: the first four of the five programs
 CLI_ARGS = ["--no-compiled", "--launches", "4", "--n-sm", "2",
@@ -213,6 +216,131 @@ def test_open_loop_burst_bit_exact_vs_oracle():
         rep.p50_ms
 
 
+def test_loop_traces_each_launch_across_both_threads():
+    """Traced, the loop records one ``loop.lock-wait`` a submit on the
+    client's thread (its ticket, tenant and the drains it met),
+    ``loop.idle`` on its own thread, and one
+    ``dispatch-wait`` and one ``launch-run`` a launch served; a launch's
+    lock-wait, queue-wait, dispatch-wait and launch-run follow each other
+    and cover its submit call through its completion, less the server's
+    submit span."""
+    srv = _server(n_sm=2)
+    code, launch, g0, seq = _sequential("reduction")
+    tr = obs.TRACER.clear().start()
+    calls = {}
+    try:
+        with trt.ServingLoop(srv, poll_interval_s=0.005) as loop:
+            futs = []
+            for i in range(6):
+                t_call = time.perf_counter()
+                futs.append(loop.submit(code, *launch, g0.copy(),
+                                        client=f"t{i % 2}"))
+                calls[futs[-1].ticket] = t_call - tr._t0
+                time.sleep(0.002 * (i % 3))
+            loop.quiesce()
+    finally:
+        tr.stop()
+    for f in futs:
+        _assert_bit_identical(f.result(), seq)
+
+    def by_ticket(name):
+        out = {}
+        for sp in tr.find(name):
+            if "ticket" in sp.attrs:
+                assert sp.attrs["ticket"] not in out, name
+                out[sp.attrs["ticket"]] = sp
+        return out
+
+    tickets = set(calls)
+    waits, queue, disp, run, sub = (by_ticket(n) for n in (
+        "loop.lock-wait", "queue-wait", "dispatch-wait", "launch-run",
+        "submit"))
+    assert set(waits) == set(queue) == set(disp) == set(run) == tickets
+    assert len(tr.find("loop.lock-wait")) == 6
+    for t in tickets:
+        lw, qw, dw, lr = waits[t], queue[t], disp[t], run[t]
+        assert lw.thread == 1 and isinstance(lw.attrs["drains"], int)
+        assert lw.attrs["tenant"] == qw.attrs["tenant"] == \
+            dw.attrs["tenant"] == lr.attrs["tenant"]
+        assert dw in tr.roots and lr in tr.roots
+        assert calls[t] <= lw.t0 <= lw.t1 <= qw.t0
+        assert qw.t1 == dw.t0 and dw.t1 == lr.t0 and lr.t0 <= lr.t1
+        gap = qw.t0 - lw.t1                 # inside the submit call
+        assert 0 <= gap <= sub[t].t1 - lw.t1
+        legs = sum(sp.t1 - sp.t0 for sp in (lw, qw, dw, lr))
+        assert legs == pytest.approx(lr.t1 - lw.t0 - gap, abs=1e-9)
+    idle = tr.find("loop.idle")
+    assert idle and {sp.attrs["wait"] for sp in idle} == {"wake"}
+    assert {sp.thread for sp in idle} == {4}     # the loop's thread
+    ev = tr.to_chrome()["traceEvents"]
+    names = {e["tid"]: e["args"]["name"] for e in ev if e["ph"] == "M"}
+    assert names[4] == "serving-loop"
+    tids = {(e["name"], e["tid"]) for e in ev if e["ph"] == "X"}
+    assert ("loop.lock-wait", 1) in tids and \
+        {t for n, t in tids if n == "loop.idle"} == {4}
+    tr.clear()
+
+
+def test_lock_wait_counts_the_drain_a_submit_meets():
+    """A submit made while the loop drains waits for the lock through
+    the rest of that drain, and its ``loop.lock-wait`` counts it in
+    ``drains``; a submit made while the loop waits for work counts
+    none."""
+    srv = _server(n_sm=1)
+    code, launch, g0, seq = _sequential("reduction")
+    started, release = threading.Event(), threading.Event()
+    drain = srv.drain
+
+    def held_drain(*a, **k):            # a drain that lasts until released
+        started.set()
+        assert release.wait(10)
+        return drain(*a, **k)
+
+    srv.drain = held_drain
+    tr = obs.TRACER.clear().start()
+    futs = []
+    try:
+        with trt.ServingLoop(srv, poll_interval_s=0.005) as loop:
+            futs.append(loop.submit(code, *launch, g0.copy()))
+            assert started.wait(10)
+            t = threading.Thread(target=lambda: futs.append(
+                loop.submit(code, *launch, g0.copy())))
+            t.start()
+            time.sleep(0.05)            # the second submit waits for the lock
+            release.set()
+            t.join(10)
+            assert not t.is_alive()
+            loop.quiesce()
+    finally:
+        tr.stop()
+    for f in futs:
+        _assert_bit_identical(f.result(), seq)
+    waits = {sp.attrs["ticket"]: sp for sp in tr.find("loop.lock-wait")}
+    first, second = (waits[f.ticket] for f in futs)
+    assert first.attrs["drains"] == 0
+    assert second.attrs["drains"] == 1
+    assert second.t1 - second.t0 >= 0.04
+    tr.clear()
+
+
+def test_loop_linger_is_idle_on_the_loop_thread():
+    """Work that waits when the loop starts an iteration lingers first:
+    a ``loop.idle`` span with ``wait="linger"``."""
+    srv = _server(n_sm=1)
+    code, launch, g0, _ = _sequential("reduction")
+    tr = obs.TRACER.clear().start()
+    try:
+        loop = trt.ServingLoop(srv, poll_interval_s=0.005, linger_s=0.002)
+        fut = loop.submit(code, *launch, g0.copy())
+        loop.start().quiesce().stop()
+        assert fut.done()
+    finally:
+        tr.stop()
+    waits = {sp.attrs["wait"] for sp in tr.find("loop.idle")}
+    tr.clear()
+    assert "linger" in waits
+
+
 # ------------------------------------------------------------ the CLI
 
 def _keys(doc, depth=0):
@@ -263,10 +391,13 @@ def test_cli_drain_equals_jax_cli(tmp_path, capsys):
 
     def shape(tr):
         ev = tr["traceEvents"]
-        return (sorted({e["name"] for e in ev if e["ph"] == "X"}),
+        return (sorted({e["name"] for e in ev if e["ph"] == "X"}
+                       - PORT_ONLY),
                 sorted({e["name"] for e in ev if e["ph"] == "C"}),
                 sorted({e["ph"] for e in ev}), sorted(tr))
     assert shape(trace) == shape(jtrace)
+    assert {"dispatch-wait", "launch-run", "merge"} <= \
+        {e["name"] for e in trace["traceEvents"]}
 
 
 def test_cli_loop_and_loadgen_serve_everything(capsys):
