@@ -1953,11 +1953,17 @@ COMPILE_LINE = re.compile(r"\[compile\] (\w+): (\d+) naive -> (\d+) optimized "
 MULTI_BLOCK = (("histogram", 16384), ("spmv", 4096))
 
 
-def grid_groups(n_blocks, n_sm):
-    """``fused_sm_run`` launches of one ``execute`` (chunk 8): one a
-    dispatch group."""
-    from repro_torch.runtime.executor import group_bounds
-    return len(group_bounds(n_blocks, n_sm, 8))
+def grid_groups(n_blocks, n_sm, gmem_words):
+    """``fused_sm_run`` launches of one ``execute`` of a launch of
+    ``gmem_words`` words on the card, ``chunk`` left unset
+    (``executor.resolve_chunk``): one a dispatch group."""
+    import torch
+    from repro_torch.core.machine import MachineConfig
+    from repro_torch.runtime import registry as reg
+    from repro_torch.runtime.executor import group_bounds, resolve_chunk
+    chunk = resolve_chunk(None, MachineConfig(), torch.device("cuda"), False,
+                          n_blocks, n_sm, reg.bucket_gmem_len(gmem_words))
+    return len(group_bounds(n_blocks, n_sm, chunk))
 
 
 def n_blocks(mod, n):
@@ -1986,7 +1992,9 @@ def phase_compile(launches, smi):
     # the CLI, each binary held to its oracle inside it
     for n in (64, 256):
         buf = io.StringIO()
-        want = sum(grid_groups(n_blocks(COMPILED[k], n), 1) for k in COMPILED)
+        want = sum(grid_groups(n_blocks(COMPILED[k], n), 1, len(
+            COMPILED[k].make_gmem(np.random.default_rng(0), n)))
+            for k in COMPILED)
 
         def cli():
             with contextlib.redirect_stdout(buf):
@@ -2014,7 +2022,7 @@ def phase_compile(launches, smi):
         gm, _ = counted(launches, lambda: histogram.run_passes(
             partial(scheduler.run_grid, device="cuda"), histogram.build(n), n,
             g0.copy()), {"fused_sm_run": grid_groups(n_blocks(histogram, n),
-                                                     1) + 1},
+                                                     1, len(g0)) + 1},
             f"histogram two passes n={n}")
         fused += launches["fused_sm_run"]
         if not np.array_equal(gm[histogram.final_slice(n)],
@@ -2033,7 +2041,7 @@ def phase_compile(launches, smi):
                                        device="cpu")
             card = counted(launches, lambda: scheduler.run_grid(
                 code, *mod.launch(n), g0.copy(), device="cuda"),
-                {"fused_sm_run": grid_groups(n_blocks(mod, n), 1)},
+                {"fused_sm_run": grid_groups(n_blocks(mod, n), 1, len(g0))},
                 f"{name} {variant}")
             fused += launches["fused_sm_run"]
             assert_same(card, plain, f"{name} n={n} {variant} card vs CPU")
@@ -2062,7 +2070,8 @@ def phase_compile(launches, smi):
                         and per_sm.max() == res.sm_cycles(_n_sm)):
                     raise AssertionError(f"{name} n={n} n_sm={_n_sm}: "
                                          "executed per-SM cycles != replay")
-                _passes.append((res, grid_groups(grid[0] * grid[1], _n_sm)))
+                _passes.append((res, grid_groups(grid[0] * grid[1], _n_sm,
+                                                 len(gmem))))
                 return res
             launches.clear()
             t0 = time.perf_counter()
@@ -4196,7 +4205,6 @@ def phase_shard_sm(launches, smi):
     from repro_torch import runtime as rt
     from repro_torch.core.programs import ALL
     from repro_torch.launch import gpgpu_serve
-    from repro_torch.runtime.executor import group_bounds
     SERVE_LOG.parent.mkdir(parents=True, exist_ok=True)
     t_phase, fused, n = time.perf_counter(), 0, 256
     rng = np.random.default_rng(26)
@@ -4320,7 +4328,7 @@ def phase_shard_sm(launches, smi):
             walls[k].append(time.perf_counter() - t0)
     n_fused = {k: shard_prediction(256, SHARD_N_SM, 8, k)[0]
                for k in SHARD_KS}
-    n_fused[1] = len(group_bounds(256, SHARD_N_SM, 8))
+    n_fused[1] = grid_groups(256, SHARD_N_SM, len(specs["matmul"].gmem))
     log("[shard-sm] matmul n=256 on 8 SMs, wall of execute + report "
         "(min/median/max ms over 3 turns): " + ", ".join(
             f"{'unsharded' if k == 1 else f'k={k}'} {spread(v)} "

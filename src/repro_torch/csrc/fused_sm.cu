@@ -16,6 +16,8 @@
 // step is one dependent chain per warp ended by a block-wide barrier, with
 // one or two warps on each of the SM's schedulers to hide it, so the time
 // is (steps) x (one step's chain + barrier), far above the bytes bound.
+// On the executor's default path P is the whole batch, so the blocks'
+// chains run side by side in one launch.
 // The design shortens that chain:
 //
 //   * one __syncthreads per step.  At the end of its step each warp

@@ -11,6 +11,13 @@ of its blocks' cycles)``.  The schedule is executed:
 * each dispatch group covers ``spd × n_sm`` positions, ``spd`` halving
   for a ragged tail exactly as in the JAX package; on the card the whole
   group is one launch of the fused kernel, one CTA per position;
+* a caller's ``chunk`` bounds a group's positions.  Left unset
+  (:func:`resolve_chunk`) it is every position of the call, rounded up
+  to a multiple of ``n_sm`` and capped by the card's free memory, on the
+  fused backend's one-device path on a card (blocks do not communicate,
+  so the whole batch runs in one launch); and 8, the JAX package's
+  default, on the CPU, on the staged ``"torch"``, ``"cuda"`` and
+  ``"reference"`` backends and on the sharded path;
 * the schedule (geometry, launch and SM of each position, the predecoded
   programs) goes to the device once, so the group loop
   (:func:`run_groups`) makes no synchronizing call and the host queues
@@ -18,7 +25,9 @@ of its blocks' cycles)``.  The schedule is executed:
 * every position runs on a private copy of its launch's gmem as it stood
   when the group started;
 * write sets merge into each launch's global memory in position order
-  (last writer wins), bit-exact with sequential block-order resolution;
+  (last writer wins), bit-exact with sequential block-order resolution,
+  with a fixed number of operations for each launch a group holds
+  (:func:`merge_writes`);
 * per-SM cycle counters accumulate in int64 from the executed blocks
   (``BLOCK_SCHED_OVERHEAD`` per block), cross-checked against the
   analytical replay :meth:`GridResult.per_sm_cycles`.
@@ -334,8 +343,10 @@ def _records(codes: bytes, shape: Tuple[int, ...],
 def clear_caches() -> None:
     """Forget every predecoded program set, so that the next call into
     each bucket counts as a build-attribution miss (the counterpart of
-    ``jax.clear_caches``; the kernel library stays loaded)."""
+    ``jax.clear_caches``; the kernel library stays loaded), and each
+    card's free memory (:func:`free_bytes`), so that it is read again."""
     _records.cache_clear()
+    free_bytes.cache_clear()
 
 
 class Schedule(NamedTuple):
@@ -375,12 +386,98 @@ def group_bounds(n_blocks: int, n_sm: int,
     return [(lo, hi) for lo, hi, _ in dispatch_groups(n_blocks, n_sm, chunk)]
 
 
+#: Positions a dispatch group holds when the caller leaves ``chunk`` unset,
+#: everywhere but the fused backend's one-device path on a card (the JAX
+#: package's default).
+DEFAULT_CHUNK = 8
+#: Device bytes a group holds for each of its positions and gmem words on
+#: the fused path: the snapshot and the kernel's write words (int32 each),
+#: their bool mask and the merge's reversed copy of it.
+GROUP_BYTES_PER_WORD = 10
+#: Share of the card's free memory a wide group's buffers may take.
+GROUP_MEMORY_SHARE = 0.5
+
+
+def wide_chunk(n_blocks: int, n_sm: int, g_words: int, free: int) -> int:
+    """The widest dispatch group of ``n_blocks`` positions whose buffers
+    (``GROUP_BYTES_PER_WORD`` for each position and gmem word of
+    ``g_words``) fit in ``GROUP_MEMORY_SHARE`` of ``free`` bytes: every
+    position, rounded up to a multiple of ``n_sm``, capped to a multiple
+    of ``n_sm`` that fits, never below ``n_sm``."""
+    fits = int(free * GROUP_MEMORY_SHARE) // (GROUP_BYTES_PER_WORD * g_words)
+    return max(n_sm, min(-(-n_blocks // n_sm), fits // n_sm) * n_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def free_bytes(device: torch.device) -> int:
+    """The card's free memory (``torch.cuda.mem_get_info``) when the
+    executor first sized a wide group on it, kept until
+    :func:`clear_caches`: on an H100 the CUDA runtime answers in 0.3-3 ms,
+    and read every call it slowed a turn of the paper's five programs at
+    n=256 by a fifth.  Memory taken after the reading is not seen; a group
+    stays within :data:`GROUP_MEMORY_SHARE` of it."""
+    return torch.cuda.mem_get_info(device)[0]
+
+
+def resolve_chunk(chunk: Optional[int], cfg: MachineConfig,
+                  device: torch.device, sharded: bool, n_blocks: int,
+                  n_sm: int, g_words: int) -> int:
+    """The ``chunk`` :func:`execute` passes to :func:`dispatch_groups`: the
+    caller's when set; else, on the fused backend's one-device path on a
+    card, :func:`wide_chunk` of the card's :func:`free_bytes`; else
+    :data:`DEFAULT_CHUNK` (the CPU, the staged ``"torch"``, ``"cuda"``
+    and ``"reference"`` backends, and the ``sharded`` path, whose merge
+    keeps a write set a position)."""
+    if chunk is not None:
+        return chunk
+    if sharded or cfg.execute_backend != "cuda_fused" \
+            or device.type != "cuda":
+        return DEFAULT_CHUNK
+    return wide_chunk(n_blocks, n_sm, g_words, free_bytes(device))
+
+
+def merge_writes(gmems: torch.Tensor, mem: torch.Tensor, wrt: torch.Tensor,
+                 launch_ids: np.ndarray) -> int:
+    """Merge a dispatch group's write sets into ``gmems`` (in place), the
+    last writer in position order winning: ``mem``/``wrt`` (P, G) hold
+    each position's final memory and written mask, ``launch_ids`` (P,)
+    its launch (the gmem row).  Returns the launch runs merged.
+
+    Each run of positions of one launch merges in a fixed number of
+    operations: per word the highest position that wrote (the first in
+    the run's written masks reversed, by ``argmax``), that position's
+    value gathered, one ``torch.where`` into the row where any position
+    wrote.  A run of one or two positions, the server's groups, folds its
+    positions with a ``torch.where`` each, fewer operations at that shape;
+    both equal a ``torch.where`` a position in position order bit for
+    bit."""
+    ids = launch_ids.tolist()
+    bounds = [0, *(p for p in range(1, len(ids)) if ids[p] != ids[p - 1]),
+              len(ids)]
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        row = gmems[ids[a]]
+        if b - a <= 2:
+            new = torch.where(wrt[a], mem[a], row)
+            if b - a == 2:
+                new = torch.where(wrt[a + 1], mem[a + 1], new)
+        else:
+            back = wrt[a:b].view(torch.uint8).flip(0).argmax(0)
+            val = mem[a:b].gather(0, (b - a - 1 - back)[None])
+            new = torch.where(wrt[a:b].any(0), val[0], row)
+        row.copy_(new)
+    return len(bounds) - 1
+
+
 def run_groups(cfg: MachineConfig, n_warps: int, n_sm: int, chunk: int,
                codes: torch.Tensor, sched: Schedule, gmems: torch.Tensor):
     """The dispatch-group loop: each group's gmem snapshots, one run of its
-    positions, the position-order merge into ``gmems`` (in place) and the
-    per-SM cycle sums.  Returns (counter rows (n_blocks, N_CTR), per-SM
-    cycles (n_sm,) int64), both on the device.
+    positions, the position-order merge into ``gmems`` (in place;
+    :func:`merge_writes`) and the per-SM cycle sums.  Returns (counter
+    rows (n_blocks, N_CTR), per-SM cycles (n_sm,) int64), both on the
+    device.  ``chunk`` is the bound :func:`execute` resolved
+    (:func:`resolve_chunk`): on the fused backend on a card, unless the
+    caller set it, one group holds the whole call.  Each group's positions
+    go to the ``executor.group_positions`` histogram.
 
     With the fused backend on the card it makes no synchronizing call, so
     the host queues group g+1 while group g runs: it reads only host
@@ -388,8 +485,10 @@ def run_groups(cfg: MachineConfig, n_warps: int, n_sm: int, chunk: int,
     sm_cyc = torch.zeros(n_sm, dtype=torch.int64, device=gmems.device)
     ctr_groups = []
     bucket = f"c{codes.shape[1]}g{gmems.shape[1]}w{n_warps}sm{n_sm}"
+    positions = METRICS.histogram("executor.group_positions")
     for lo, hi in group_bounds(len(sched.geom), n_sm, chunk):
         geom = sched.geom[lo:hi]
+        positions.record(hi - lo)
         with TRACER.span("device-execute", bucket=bucket, width=hi - lo,
                          n_blocks=hi - lo, n_sm=n_sm):
             snap = gmems.index_select(0, sched.launch_ids[lo:hi])
@@ -399,10 +498,8 @@ def run_groups(cfg: MachineConfig, n_warps: int, n_sm: int, chunk: int,
                 mem, wrt, ctr = fused_sm_run(
                     cfg, n_warps, codes, geom, snap, records=sched.records,
                     geom_dev=sched.geom_dev[lo:hi])
-            # position-order merge: later positions overwrite earlier ones
-            with TRACER.span("merge", n_positions=hi - lo):
-                for p, li in enumerate(geom[:, 0].tolist()):
-                    gmems[li] = torch.where(wrt[p], mem[p], gmems[li])
+            with TRACER.span("merge", n_positions=hi - lo) as sp:
+                sp.set(n_launches=merge_writes(gmems, mem, wrt, geom[:, 0]))
             cost = ctr[:, C_CYCLES].to(torch.int64) + BLOCK_SCHED_OVERHEAD
             sm_cyc.index_add_(0, sched.sm_ids[lo:hi], cost)
         ctr_groups.append(ctr)
@@ -630,8 +727,8 @@ def run_groups_sharded(cfg: MachineConfig, n_warps: int, n_sm: int,
 
 
 def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
-            cfg: MachineConfig = MachineConfig(), chunk: int = 8,
-            pad_warps: Optional[int] = None,
+            cfg: MachineConfig = MachineConfig(),
+            chunk: Optional[int] = None, pad_warps: Optional[int] = None,
             registry: Optional[ModuleRegistry] = None,
             shard_sm: bool = False, sm_devices: Optional[Sequence] = None,
             device="cuda") -> DeviceGrid:
@@ -640,6 +737,12 @@ def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
     Blocks may not communicate (true of the paper's benchmarks); write
     sets merge in global block order after each dispatch group.  ``chunk``
     bounds the positions per group (rounded to a multiple of ``n_sm``).
+    Left unset (:func:`resolve_chunk`), it is the whole call on the
+    ``"cuda_fused"`` backend's one-device path on a card, as wide as half
+    the card's free memory allows, so the batch runs in one launch; and 8
+    on the CPU, on the staged ``"torch"``, ``"cuda"`` and ``"reference"``
+    backends and on the sharded path.  A caller that sets it gets exactly
+    its groups (:func:`group_bounds`).
     The SM is as wide as the widest launch's block, or ``pad_warps`` warps
     (the serving path pads all tenants to one width; warps beyond a
     launch's threads start FINISHED, so counters stay exact); fewer than
@@ -699,6 +802,8 @@ def execute(launches: Sequence[LaunchSpec], n_sm: int = 1,
             "padding would silently never run")
     geom = np.concatenate(pos_l)
     n_blocks = len(geom)
+    chunk = resolve_chunk(chunk, cfg, dev, mesh is not None, n_blocks, n_sm,
+                          g_width)
     # everything the group loop reads goes to the device once, here: the
     # programs, their records (predecoded on the host, cached), and one
     # buffer of the geometry rows, launch ids and SM ids of the positions
@@ -742,11 +847,14 @@ _default_registry = ModuleRegistry(max_modules=1024)
 
 
 def run_grid(code, grid: Tuple[int, int], block_dim, gmem,
-             cfg: MachineConfig = MachineConfig(), chunk: int = 8,
-             n_sm: int = 1, pad_warps: Optional[int] = None,
+             cfg: MachineConfig = MachineConfig(),
+             chunk: Optional[int] = None, n_sm: int = 1,
+             pad_warps: Optional[int] = None,
              registry: Optional[ModuleRegistry] = None,
              device="cuda") -> GridResult:
-    """Single-launch entry: execute and materialize."""
+    """Single-launch entry: execute and materialize.  ``chunk`` as in
+    :func:`execute`: unset, the whole grid in one group on the fused
+    backend on a card, 8 positions elsewhere."""
     dg = execute([LaunchSpec(code, grid, block_dim, gmem)],
                  n_sm=n_sm, cfg=cfg, chunk=chunk, pad_warps=pad_warps,
                  registry=registry, device=device)

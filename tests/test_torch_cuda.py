@@ -29,6 +29,7 @@ from repro_torch.kernels.simt_alu import simt_alu
 from test_torch_parity import (out_of_range_program, random_branchy,
                                random_straightline, same_step_gmem,
                                same_step_program)
+from torch_wide_groups import PINNED_N64, digest, five_programs
 
 pytestmark = pytest.mark.cuda
 
@@ -224,9 +225,12 @@ def test_cycle_budget_stops_blocks_mid_program_on_card(card, budget):
         assert torch.equal(a.cpu(), b)
 
 
-def test_group_loop_makes_no_synchronizing_call(card, monkeypatch):
+@pytest.mark.parametrize("chunk,launches", [(None, 1), (8, 2)])
+def test_group_loop_makes_no_synchronizing_call(card, monkeypatch, chunk,
+                                                launches):
     """execute's dispatch-group loop under sync debug mode "error": any
-    call that waits for the card raises.  Results equal the CPU's."""
+    call that waits for the card raises, in one wide group (chunk unset)
+    and in two groups of 8.  Results equal the CPU's."""
     mod = ALL["transpose"]
     code, (grid, bd) = mod.build(64), mod.launch(64)
     g0 = mod.make_gmem(np.random.default_rng(0), 64)
@@ -243,11 +247,41 @@ def test_group_loop_makes_no_synchronizing_call(card, monkeypatch):
     want = scheduler.run_grid(code, grid, bd, g0.copy(), n_sm=2,
                               device="cpu")
     _build.LAUNCHES.clear()
-    got = scheduler.run_grid(code, grid, bd, g0.copy(), n_sm=2, device=card)
-    assert _build.LAUNCHES["fused_sm_run"] == 2
+    got = scheduler.run_grid(code, grid, bd, g0.copy(), n_sm=2, chunk=chunk,
+                             device=card)
+    assert _build.LAUNCHES["fused_sm_run"] == launches
     for f in want._fields:
         np.testing.assert_array_equal(np.asarray(getattr(got, f)),
                                       np.asarray(getattr(want, f)), f)
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_unset_chunk_runs_the_batch_in_one_launch(card, n):
+    """The five paper programs on 2 SMs with chunk unset: one
+    fused_sm_run launch, bit-equal to groups of 8 on the card in every
+    gmem word, counter, block's cycles and per-SM cycle; at n=64 also to
+    the JAX package's execute at its default (the pin)."""
+    def run(chunk):
+        dg = scheduler.execute(
+            [scheduler.LaunchSpec(*s) for s in five_programs(n)], n_sm=2,
+            chunk=chunk, device=card)
+        return dg.to_results(), dg.report()
+
+    _build.LAUNCHES.clear()
+    got, rep = run(None)
+    assert dict(_build.LAUNCHES) == {"fused_sm_run": 1}
+    _build.LAUNCHES.clear()
+    want, wrep = run(8)
+    assert dict(_build.LAUNCHES) == {
+        "fused_sm_run": len(executor.group_bounds(rep.n_blocks, 2, 8))}
+    for g, w in zip(got, want):
+        for f in w._fields:
+            np.testing.assert_array_equal(np.asarray(getattr(g, f)),
+                                          np.asarray(getattr(w, f)), f)
+    np.testing.assert_array_equal(rep.per_sm_cycles, wrep.per_sm_cycles)
+    assert rep.n_blocks == sum(int(np.prod(s[1])) for s in five_programs(n))
+    if n == 64:
+        assert digest(got, rep.per_sm_cycles) == PINNED_N64
 
 
 def _sharded_specs(n=32):

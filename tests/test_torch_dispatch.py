@@ -2,7 +2,8 @@
 package, bit for bit: the host-side reduction passes, dispatch-group
 sizes that must not change results, multi-launch batches, the
 position-order last-writer merge with group-start gmem snapshots, and the
-module registry."""
+module registry; the width an unset ``chunk`` resolves to, and the merge
+of a launch's positions in one reduction against the loop a position."""
 import functools
 
 import numpy as np
@@ -12,8 +13,12 @@ import torch
 from repro import runtime as jrt
 from repro.core import scheduler as jsched
 from repro.core.machine import MachineConfig as JaxConfig
+from repro_torch import obs
 from repro_torch.core import asm, isa, scheduler
+from repro_torch.core.machine import MachineConfig
 from repro_torch.core.programs import ALL
+from repro_torch.runtime import executor
+from torch_wide_groups import PINNED_N64, digest, five_programs
 
 FIELDS = ("gmem", "cycles_per_block", "op_issues", "op_lanes", "stack_ops",
           "max_sp", "overflow")
@@ -146,3 +151,182 @@ def test_gmem_as_tensor_and_module_registry():
                           device="cpu")
     with pytest.raises(ValueError, match="at least one launch"):
         scheduler.execute([], device="cpu")
+
+
+GIB = 1 << 30
+
+
+@pytest.mark.parametrize("n_blocks,n_sm,g_words,free,want", [
+    (518, 2, 262144, 80 * 10**9, 518),      # the suite: one group
+    (517, 2, 262144, 80 * 10**9, 518),      # rounded up to the SMs
+    (35, 2, 16384, 80 * 10**9, 36),
+    (518, 2, 262144, 2 * GIB, 408),         # capped: 409 fit
+    (518, 5, 262144, 2 * GIB, 405),         # a multiple of 5 that fits
+    (518, 2, 262144, 10**6, 2),             # never below n_sm
+    (1, 8, 1024, 0, 8),
+])
+def test_wide_chunk_rule(n_blocks, n_sm, g_words, free, want):
+    """The width is every position rounded up to a multiple of n_sm,
+    capped where the group's buffers would pass their share of the free
+    memory, and at least n_sm."""
+    got = executor.wide_chunk(n_blocks, n_sm, g_words, free)
+    assert got == want
+    assert got % n_sm == 0 and got >= n_sm
+    per = executor.GROUP_BYTES_PER_WORD * g_words
+    assert got == n_sm or got * per <= free * executor.GROUP_MEMORY_SHARE
+    if (got + n_sm) * per <= free * executor.GROUP_MEMORY_SHARE:
+        assert got >= n_blocks                # not capped: every position
+    if n_blocks == 518 and free == 80 * 10**9:
+        assert len(executor.dispatch_groups(n_blocks, n_sm, got)) == 1
+
+
+CARD = torch.device("cuda")
+
+
+@pytest.mark.parametrize("backend,device,sharded,wide", [
+    ("cuda_fused", torch.device("cpu"), False, False),
+    ("torch", CARD, False, False),
+    ("cuda", CARD, False, False),
+    ("reference", CARD, False, False),
+    ("cuda_fused", CARD, True, False),
+    ("cuda_fused", CARD, False, True),
+])
+def test_unset_chunk_resolves_by_backend(monkeypatch, backend, device,
+                                         sharded, wide):
+    """chunk=None is 8 on the CPU, on the staged backends and on the
+    sharded path, where the card's memory is never read; on the fused
+    backend's one-device path on a card it is the wide group, the free
+    memory read once until ``clear_caches``.  A chunk the caller sets
+    comes back as it was, with today's group bounds."""
+    reads = []
+
+    def mem_get_info(dev):
+        reads.append(dev)
+        return 80 * 10**9, 80 * 10**9
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    cfg = MachineConfig(execute_backend=backend)
+    executor.clear_caches()
+    try:
+        for _ in range(2):                    # read once, then kept
+            got = executor.resolve_chunk(None, cfg, device, sharded, 518, 2,
+                                         262144)
+            assert got == (518 if wide else 8)
+        assert executor.DEFAULT_CHUNK == 8
+        assert reads == ([device] if wide else [])
+        for chunk in (1, 2, 4, 8, 64):
+            assert executor.resolve_chunk(chunk, cfg, device, sharded, 518,
+                                          2, 262144) == chunk
+        assert len(reads) == int(wide)
+    finally:
+        executor.clear_caches()               # forget the fake reading
+    assert executor.group_bounds(518, 2, 8) == \
+        [(i, i + 8) for i in range(0, 512, 8)] + [(512, 518)]
+    assert executor.group_bounds(11, 2, 2) == \
+        [(i, min(i + 2, 11)) for i in range(0, 11, 2)]
+    assert executor.group_bounds(9, 2, 64) == [(0, 9)]
+
+
+@pytest.mark.parametrize("chunk,shard", [(None, False), (None, True),
+                                         (4, False), (64, False)])
+def test_execute_groups_on_the_cpu(chunk, shard):
+    """On the CPU an unset chunk runs 8-position groups, sharded or not;
+    a set chunk runs exactly its group bounds.  Each group's positions go
+    to ``executor.group_positions`` and its merge span counts the
+    launches it held."""
+    specs = [scheduler.LaunchSpec(*s) for s in five_programs(32)]
+    hist = executor.METRICS.histogram("executor.group_positions")
+    shard_groups = executor.METRICS.counter("shard.dispatch_groups")
+    n0, t0, g0 = hist.count, hist.total, shard_groups.value
+    kw = dict(shard_sm=True, sm_devices=["cpu"] * 2) if shard else {}
+    obs.TRACER.clear().start()
+    try:
+        dg = scheduler.execute(specs, n_sm=2, chunk=chunk, device="cpu", **kw)
+    finally:
+        obs.TRACER.stop()
+    merges = [sp.attrs for sp in sorted(obs.TRACER.find("merge"),
+                                        key=lambda sp: sp.t0)]
+    obs.TRACER.clear()
+    n_blocks = dg.report().n_blocks
+    bounds = executor.group_bounds(n_blocks, 2, chunk or 8)
+    if shard:
+        assert shard_groups.value - g0 == len(bounds)
+        assert hist.count == n0
+        return
+    assert hist.count - n0 == len(bounds)
+    assert hist.total - t0 == n_blocks
+    offsets = np.cumsum([0] + [int(np.prod(s.grid)) for s in specs])
+    assert [m["n_positions"] for m in merges] == \
+        [hi - lo for lo, hi in bounds]
+    assert [m["n_launches"] for m in merges] == [
+        int(((offsets[1:] > lo) & (offsets[:-1] < hi)).sum())
+        for lo, hi in bounds]
+
+
+def _loop_merge(gmems, mem, wrt, launch_ids):
+    """The merge a ``torch.where`` a position, in position order."""
+    for p, li in enumerate(launch_ids.tolist()):
+        gmems[li] = torch.where(wrt[p], mem[p], gmems[li])
+
+
+def _merge_case(kind, rng):
+    G = 40
+    if kind == "one launch":
+        ids = np.zeros(9, np.int32)
+    elif kind == "mixed launches":
+        ids = np.repeat(np.arange(4), [1, 5, 2, 3]).astype(np.int32)
+    elif kind == "two and one":
+        ids = np.array([0, 0, 1], np.int32)
+    elif kind == "unordered":
+        ids = rng.integers(0, 3, 12).astype(np.int32)
+    else:
+        ids = np.repeat(np.arange(2), [6, 3]).astype(np.int32)
+    P = len(ids)
+    mem = torch.as_tensor(rng.integers(-2**31, 2**31, (P, G)),
+                          dtype=torch.int32)
+    if kind == "one word each":               # every position, one word
+        wrt = torch.zeros((P, G), dtype=torch.bool)
+        wrt[:, 7] = True
+    elif kind == "empty":
+        wrt = torch.zeros((P, G), dtype=torch.bool)
+    else:
+        wrt = torch.as_tensor(rng.random((P, G)) < 0.4)
+    return ids, mem, wrt
+
+
+@pytest.mark.parametrize("kind", ["one launch", "mixed launches",
+                                  "two and one", "unordered",
+                                  "one word each", "empty"])
+def test_merge_writes_equals_position_loop(kind):
+    """One reduction a launch run equals the loop a position, bit for
+    bit: the last writer of each word wins, unwritten words keep the
+    group's starting gmem."""
+    rng = np.random.default_rng(len(kind))
+    ids, mem, wrt = _merge_case(kind, rng)
+    start = torch.as_tensor(rng.integers(-2**31, 2**31, (4, mem.shape[1])),
+                            dtype=torch.int32)
+    want, got = start.clone(), start.clone()
+    _loop_merge(want, mem, wrt, ids)
+    runs = executor.merge_writes(got, mem, wrt, ids)
+    assert torch.equal(got, want)
+    assert runs == 1 + int((ids[1:] != ids[:-1]).sum())
+    if kind == "one word each":
+        assert got[0, 7] == mem[5, 7] and got[1, 7] == mem[8, 7]
+    if kind == "empty":
+        assert torch.equal(got, start)
+
+
+def test_five_programs_pin_matches_jax():
+    """The pin the card's widest group is held to is the JAX package's
+    execute of the five programs at n=64 on 2 SMs at its default chunk,
+    and the port's CPU path gives it at its default and in one group."""
+    jdg = jrt.execute([jrt.LaunchSpec(*s) for s in five_programs(64)],
+                      n_sm=2, cfg=JAX)
+    assert digest(jdg.to_results(), jdg.report().per_sm_cycles) == \
+        PINNED_N64
+    for chunk in (None, 64):
+        dg = scheduler.execute(
+            [scheduler.LaunchSpec(*s) for s in five_programs(64)], n_sm=2,
+            chunk=chunk, device="cpu")
+        assert digest(dg.to_results(), dg.report().per_sm_cycles) == \
+            PINNED_N64, chunk
