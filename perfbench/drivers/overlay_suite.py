@@ -72,10 +72,9 @@ class Cell(H.ClosedLoopCell):
 
     def facts(self) -> dict:
         blocks = [int(np.prod(p["grid"])) for p in self.progs.values()]
-        return {"group_bytes": counts.overlay_group_bytes(
+        return {"batch_bytes": counts.overlay_batch_bytes(
                     blocks, [p["gmem_words"] for p in self.progs.values()],
-                    [c.size for c in self.codes], self.cfg["n_sm"],
-                    self.wl["count_chunk"])}
+                    [c.size for c in self.codes])}
 
     def check(self):
         m = R.Machine(**self.cfg["machine"])

@@ -17,16 +17,15 @@ def test_roofline_takes_the_larger_bound():
     assert counts.roofline_s(0, 67e12, "fp32") == pytest.approx(1.0)
 
 
-def test_overlay_group_bytes_by_hand():
-    # launches of 3 and 1 blocks on 2 SMs, chunk 2: groups [0, 2), [2, 4)
-    assert counts.dispatch_groups(4, 2, 2) == [(0, 2), (2, 4)]
-    assert counts.dispatch_groups(4, 2, 4) == [(0, 4)]
-    got = counts.overlay_group_bytes([3, 1], [100, 10], [20, 30], 2, 2)
+def test_overlay_batch_bytes_by_hand():
+    """Launches of 3 and 1 blocks: each program in, each memory in and
+    out, each block's counters out, however the blocks are grouped."""
     cw = counts.COUNTER_WORDS
-    assert got == [4 * (20 + 200 + 2 * cw),
-                   4 * (20 + 200 + 30 + 20 + 2 * cw)]
-    # 518 blocks of the five paper programs on 2 SMs, chunk 8: 65 groups
-    assert len(counts.dispatch_groups(518, 2, 8)) == 65
+    assert counts.overlay_batch_bytes([3, 1], [100, 10], [20, 30]) == \
+        4 * (20 + 200 + 30 + 20 + 4 * cw)
+    # the suite's batch: five launches, 518 blocks
+    assert counts.overlay_batch_bytes([1, 1, 256, 4, 256], [0] * 5,
+                                      [0] * 5) == 4 * 518 * cw
 
 
 def test_readers_by_hand():
@@ -34,14 +33,14 @@ def test_readers_by_hand():
                       "launches": {"fused_sm_run": 260},
                       "queue_wait_p50_s": 0.00025,
                       "spans": {"device-execute": [1e-3, 3e-3]}},
-           "facts": {"group_bytes": [3.35e9, 3.35e9]},
+           "facts": {"batch_bytes": 3.35e9},
            "profile": {"kernels": {"fused_sm_run_kernel<true>": [4e-3, 2],
                                    "void other_kernel": [1e-3, 6]},
                        "launches": {}, "turns": 1, "busy_s": 0.75,
                        "window_s": 1.0, "result": {}}}
     read = H.metric_reader
     assert read("fused_sm_run.roofline")(ctx) == pytest.approx(
-        100 * (2 * 3.35e9 / 3.35e12) / 4e-3)
+        100 * (3.35e9 / 3.35e12) / 4e-3)
     assert read("fused_sm_run.launches_per_batch")(ctx) == 65
     assert read("executor.host_ms_per_group")(ctx) == pytest.approx(2.0)
     assert read("serve.fused_launches_per_launch")(ctx) == 26

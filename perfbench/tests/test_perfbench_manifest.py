@@ -87,7 +87,7 @@ def test_reader_finds_nothing_returns_nothing(name):
                          "turns": 0, "launches": {}, "result": {}},
              "window": {"turns": 0, "window_s": 1.0, "launches": {},
                         "spans": {}, "completed": 0},
-             "facts": {"group_bytes": []}}
+             "facts": {}}
     assert H.metric_reader(name)(empty) is None
 
 
