@@ -56,8 +56,10 @@ Phases, each printed as it ends:
    (``FAMILY_FWD_SHAPES``: dbrx's GQA ratio 6 at dh 128, whisper's
    cross-attention 512 x 1500 and encoder 1500 x 1500 at dh 64, full, and
    paligemma's 8/1 heads of 256, each by both variants), two calls
-   bit-equal; matmul at the sweep's shapes, a ragged
-   200x200x200 and a scalar-load shape, in both dtypes, and at
+   bit-equal; Zamba2-7B's dh 224 scaled by (224 / 2) ** -0.5 at the
+   benchmark cell's (2, 4096, 32/32) and a ragged GQA shape, o and lse
+   against ``mha_lse_ref`` by both variants; matmul at the sweep's
+   shapes, a ragged 200x200x200 and a scalar-load shape, in both dtypes, and at
    ``kernel_micro``'s 512x512 float32 with 128 tiles, through
    ``ops.matmul`` (that call is the matmul kernel's path);
 9. the LM serving path: ``repro_torch.launch.serve.main`` serves
@@ -139,7 +141,9 @@ Phases, each printed as it ends:
    attention, dh 256 in bf16 and in float32, whisper's cross-attention
    512 x 1500 full, dbrx's GQA ratio 6, paligemma's training shape, 8/1
    heads of 256, and at dh 256 a ragged S=200 with one KV head, a full
-   200 x 232 and 16/16 heads), each by the rule's variant (``"tc"`` for
+   200 x 232 and 16/16 heads; and Zamba2-7B's dh 224 at its scale,
+   (2, 4096, 32/32) and a ragged GQA shape), each by the rule's variant
+   (``"tc"`` for
    bf16, ``"simt"`` for float32) and the ``"tc"`` ones by the forced
    ``"simt"`` too, two calls bit-equal; ``repro_torch.launch.train.main``
    trains qwen3-0.6b at full width (28 layers, 596,042,752 random bf16
@@ -178,6 +182,12 @@ Phases, each printed as it ends:
    fp32 step than the plain attention's plus ``TRAIN_LOSS_TOL`` and
    ``TRAIN_GRAD_TOL``; a profiled step with its peak memory; and a
    bit-exact resume at ``--reduced``;
+19b. Zamba2-7B-Instruct's published hybrid training (``[train-zamba2-7b]``):
+   the first of its four pipeline stages at the published widths (24
+   layers, 2.73 G parameters), one ``build_train_step`` step of 1 x 4096
+   after a warm-up step: exactly 4 flash forwards and 4 backwards, one of
+   each a shared-block call, all ``"tc"`` at dh 224, the counters zeroed
+   just before; loss and gradient norm finite;
 20. the moe family serving (``[serve-moe]``): dbrx-132b at 8 of 40 layers
    and kimi-k2 at 1 of 61, every width as published (the cut spec built
    by ``dataclasses.replace``, each cut logged), random bf16 weights from
@@ -451,6 +461,17 @@ def ptxas_kernels(report: str):
 
 
 # ------------------------------------------------------------ phase 3
+def check_wide(built):
+    """The wide tensor-core kernels at dh 256 and 224 (the forward, dK/dV,
+    dQ and delta), four a width, none spilling."""
+    for dh in (256, 224):
+        wide = [x for x in built
+                if x[0].startswith("tc::") and f"<{dh}>" in x[0]]
+        if len(wide) != 4 or any(x[2] or x[3] for x in wide):
+            raise AssertionError(f"ptxas: the dh-{dh} tensor-core kernels "
+                                 f"{wide}, want four without spill")
+
+
 def alu_inputs(rng, W, opcodes):
     """op (W,) and six (W, 32) int32 operands; edge-value pairs fill the
     first lanes of s1/s2 (every pair once where they fit)."""
@@ -978,19 +999,28 @@ FAMILY_FWD_SHAPES = [("dbrx GQA 6", 4, 512, 48, 8, 128, True),
                      ("whisper cross", 8, (512, 1500), 16, 16, 64, False),
                      ("whisper encoder", 4, 1500, 16, 16, 64, False),
                      ("paligemma MQA dh 256", 4, 512, 8, 1, 256, True)]
+#: Zamba2-7B-Instruct's shared attention: heads of 224, scores scaled by
+#: (224 / 2) ** -0.5; (tag, B, S, H, KH), causal: the benchmark cell's
+#: call and a ragged GQA shape
+DH224_SCALE = (224 / 2) ** -0.5
+DH224_SHAPES = [("zamba2-7b shared attention", 2, 4096, 32, 32),
+                ("dh 224 ragged GQA", 2, 200, 4, 2)]
 
 
 def phase_flash_vs_plain():
     """The sweep through both variants: every bf16 case at dh 64, 128 and
     256 by the rule's tensor-core variant and by the SIMT one; float32 and
     the misaligned case by the SIMT one, which the rule must choose; the
-    GQA cache prefix at dh 128 and 256 and the families' shapes
-    (``FAMILY_FWD_SHAPES``) by both."""
+    GQA cache prefix at dh 128 and 256, the families' shapes
+    (``FAMILY_FWD_SHAPES``) and Zamba2-7B's dh 224 at its scale
+    (``DH224_SHAPES``) by both."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (TC_HEAD_DIMS,
                                                      flash_attention,
                                                      flash_attention_gqa)
-    from repro_torch.kernels.ref import flash_attention_ref, mha_ref
+    from repro_torch.kernels.ref import (flash_attention_ref, mha_lse_ref,
+                                         mha_ref)
     g = torch.Generator(device="cuda").manual_seed(5)
     cases = [(256, 256, 64, True), (256, 256, 128, True),
              (128, 512, 64, False), (512, 512, 64, True),
@@ -1067,6 +1097,36 @@ def phase_flash_vs_plain():
             max_err = max(max_err, err)
             fam.append(f"{tag} {want} {err:.3e}")
         del q, k, v, want_out, got, again
+    # Zamba2-7B's shared attention at dh 224 with its own scale: o and
+    # lse by the rule's tensor-core variant and the forced SIMT one
+    z = []
+    for tag, B, S, H, KH in DH224_SHAPES:
+        q = rand(g, (B, S, H, 224), torch.bfloat16)
+        k, v = (rand(g, (B, S, KH, 224), torch.bfloat16) for _ in range(2))
+        want_o, want_lse = mha_lse_ref(q, k, v, causal=True,
+                                       scale=DH224_SCALE)
+        if fa.variant(q, k, v) != "tc":
+            raise AssertionError(f"flash {tag}: the rule picked "
+                                 f"{fa.variant(q, k, v)}, want tc")
+        for want, forced in (("tc", None), ("simt", "simt")):
+            _build.VARIANTS.clear()
+            o, lse = fa._launch(q, k, v, True, forced, want_lse=True,
+                                scale=DH224_SCALE)
+            if variant_counts() != {("flash_attention", want): 1}:
+                raise AssertionError(f"flash {tag} {want}: launched "
+                                     f"{variant_counts()}")
+            err = close(o, want_o, 3e-2, f"flash {tag} {want}")
+            lse_err = (lse - want_lse).abs().max().item()
+            if lse_err > 1e-4 * max(1.0, want_lse.abs().max().item()):
+                raise AssertionError(f"flash lse {tag} {want}: error "
+                                     f"{lse_err}")
+            max_err = max(max_err, err)
+            z.append(f"{tag} (B {B}, S {S}, {H}/{KH} heads) {want} "
+                     f"{err:.3e}, lse {lse_err:.1e}")
+        del q, k, v, want_o, want_lse, o, lse
+    log(f"[flash_attention] dh 224, scale (224 / 2) ** -0.5, against "
+        f"mha_lse_ref (o within 3e-2, lse within 1e-4), the rule's tc and "
+        f"the forced simt: " + ", ".join(z))
     log(f"[flash_attention] vs flash_attention_ref: {n + 6} cases (the "
         f"test_kernels sweep, S=200, dh 64-256, each bf16 case by both "
         f"variants; large logits; GQA cache prefix at dh 128 and MQA at dh "
@@ -2266,16 +2326,17 @@ def lengths(S):
     return S if isinstance(S, tuple) else (S, S)
 
 
-def bwd_case(g, B, S, H, KH, dh, dtype, causal):
+def bwd_case(g, B, S, H, KH, dh, dtype, causal, scale=None):
     """Inputs of one backward call (``S``: one length or (Sq, Sk)), the
-    forward's o and lse from the kernel (the variant the rule picks), and
-    the backward's variant by the rule."""
+    forward's o and lse from the kernel (the variant the rule picks, the
+    scores scaled by ``scale``, None: dh ** -0.5), and the backward's
+    variant by the rule."""
     from repro_torch.kernels import flash_attention as fa
     Sq, Sk = lengths(S)
     q = rand(g, (B, Sq, H, dh), dtype)
     k, v = (rand(g, (B, Sk, KH, dh), dtype) for _ in range(2))
     do = rand(g, (B, Sq, H, dh), dtype)
-    o, lse = fa._launch(q, k, v, causal, None, want_lse=True)
+    o, lse = fa._launch(q, k, v, causal, None, want_lse=True, scale=scale)
     return q, k, v, o, do, lse, fa.variant(q, k, v, o, do)
 
 
@@ -2288,33 +2349,39 @@ def phase_flash_bwd_vs_plain():
     ``bwd_split``'s partials (4 splits at paligemma's shape and the full
     200 x 232 case, 2 at "dh 256", 8 at the ragged MQA one), the direct
     bf16 stores of one split (16/16 heads: 256 CTAs without a split) and
-    ragged tails.
+    ragged tails.  Zamba2-7B's dh 224 (``DH224_SHAPES``) runs at its
+    scale, the cell's call one split of 32/32 heads.
     Returns the largest absolute error."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import mha_bwd_ref, mha_lse_ref
     g = torch.Generator(device="cuda").manual_seed(17)
     max_err, lines = 0.0, []
-    for tag, B, S, H, KH, dh, dtype, causal in BWD_SHAPES:
+    shapes = [(*x, None) for x in BWD_SHAPES] + [
+        (tag, B, S, H, KH, 224, torch.bfloat16, True, DH224_SCALE)
+        for tag, B, S, H, KH in DH224_SHAPES]
+    for tag, B, S, H, KH, dh, dtype, causal, sm_scale in shapes:
         q, k, v, o, do, lse, var = bwd_case(g, B, S, H, KH, dh, dtype,
-                                            causal)
+                                            causal, sm_scale)
         rule = "tc" if dtype == torch.bfloat16 and dh in fa.TC_HEAD_DIMS \
             else "simt"
         if var != rule:
             raise AssertionError(f"flash_attention_bwd {tag}: the rule "
                                  f"picked {var}, want {rule}")
-        lse_err = (lse - mha_lse_ref(q, k, v, causal=causal)[1]).abs() \
-            .max().item()
+        lse_err = (lse - mha_lse_ref(q, k, v, causal=causal,
+                                     scale=sm_scale)[1]).abs().max().item()
         if lse_err > 1e-4 * max(1.0, lse.abs().max().item()):
             raise AssertionError(f"flash lse {tag}: error {lse_err}")
-        want = mha_bwd_ref(q, k, v, o, do, lse, causal=causal)
+        want = mha_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                           scale=sm_scale)
         runs = [(var, None)] + ([("simt", "simt")] if var == "tc" else [])
         for name_v, forced in runs:
             _build.VARIANTS.clear()
             got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
-                                         variant=forced)
+                                         variant=forced, scale=sm_scale)
             again = fa.flash_attention_bwd(q, k, v, o, do, lse,
-                                           causal=causal, variant=forced)
+                                           causal=causal, variant=forced,
+                                           scale=sm_scale)
             torch.cuda.synchronize()
             if variant_counts() != {("flash_attention_bwd", name_v): 2}:
                 raise AssertionError(f"flash_attention_bwd {tag}: launched "
@@ -2332,8 +2399,9 @@ def phase_flash_bwd_vs_plain():
                                          f"{scale}")
                 max_err = max(max_err, err)
                 rels.append(err / scale)
+            at = "" if sm_scale is None else f", scale {sm_scale:.4f}"
             lines.append(f"{tag} (B {B}, S {S}, {H}/{KH} heads, dh {dh}, "
-                         f"{str(dtype)[6:]}, causal={causal}) {name_v}"
+                         f"{str(dtype)[6:]}, causal={causal}{at}) {name_v}"
                          f"{' forced' if forced else ''}: lse "
                          f"{lse_err:.1e}, dq/dk/dv "
                          + "/".join(f"{r:.1e}" for r in rels))
@@ -2422,9 +2490,11 @@ def bwd_call_check(errs):
     from repro_torch.kernels.ref import mha_bwd_ref
     real = fa.flash_attention_bwd
 
-    def checked(q, k, v, o, do, lse, *, causal=True, variant=None):
-        got = real(q, k, v, o, do, lse, causal=causal, variant=variant)
-        want = mha_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    def checked(q, k, v, o, do, lse, *, causal=True, variant=None,
+                scale=None):
+        got = real(q, k, v, o, do, lse, causal=causal, variant=variant,
+                   scale=scale)
+        want = mha_bwd_ref(q, k, v, o, do, lse, causal=causal, scale=scale)
         shares = [((a.float() - w.float()).abs().max()
                    / w.float().abs().max()).item() for a, w in zip(got, want)]
         if not max(shares) <= BWD_TOL[q.dtype]:
@@ -3170,6 +3240,76 @@ def phase_train_families(launches, smi):
     log(f"[train-families] phase wall {time.perf_counter() - t_phase:.1f} "
         f"s; {smi}")
     return fwd, bwd
+
+
+#: Zamba2-7B-Instruct's published hybrid as the benchmark trains it (the
+#: first of four pipeline stages, 24 layers, 2.73 G parameters), at one
+#: row of the cell's 4096 tokens: the flash launches a step do not depend
+#: on the batch, and one row leaves room beside what the phases before
+#: left in the allocator
+ZAMBA2_7B, ZAMBA2_7B_B, ZAMBA2_7B_S = "zamba2-7b-instruct", 1, 4096
+
+
+def phase_train_zamba2_7b(launches, smi):
+    """``build_train_step`` of ``ZAMBA2_7B`` at its published widths: one
+    step to warm up, then, the counters zeroed just before, one step
+    that launches exactly one flash forward and one backward a
+    shared-block call (4 + 4: the block runs outside the remat), every
+    one ``"tc"`` at dh 224, nothing else of the flash kernels; its loss
+    and gradient norm finite.  Returns the step's flash forward and
+    backward launches."""
+    from repro_torch import configs, tree as T
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, opt_init
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    spec = configs.get(ZAMBA2_7B)
+    cfg = spec.cfg
+    calls = len(cfg.hybrid_layer_ids)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), spec)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=ZAMBA2_7B_S,
+                                   global_batch=ZAMBA2_7B_B, seed=0),
+                        device="cuda").batch(0)
+    opt_cfg = OptConfig()
+    step = build_train_step(spec, opt_cfg)
+    state = opt_init(params, opt_cfg)
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    _build.VARIANTS.clear()
+    t0 = time.perf_counter()
+    params, state, stats = step(params, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in launches.items() if k.startswith("flash")}
+    want = {"flash_attention": calls, "flash_attention_bwd": calls}
+    got_v = {k: n for k, n in variant_counts().items()
+             if k[0].startswith("flash")}
+    if counts != want or got_v != {(k, "tc"): n for k, n in want.items()}:
+        raise AssertionError(f"train {ZAMBA2_7B}: flash launches {counts}, "
+                             f"variants {got_v}, want {want} all tc")
+    loss, gnorm = float(stats["loss"]), float(stats["grad_norm"])
+    if not (np.isfinite(loss) and np.isfinite(gnorm)):
+        raise AssertionError(f"train {ZAMBA2_7B}: loss {loss}, grad norm "
+                             f"{gnorm}")
+    n_params = sum(x.numel() for x in T.leaves(params))
+    log(f"[train-zamba2-7b] {ZAMBA2_7B} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, hybrid layers {list(cfg.hybrid_layer_ids)} on "
+        f"{cfg.num_mem_blocks} tied blocks, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}; {n_params} parameters), build_train_step at "
+        f"{ZAMBA2_7B_B} x {ZAMBA2_7B_S}: one step after the warm-up "
+        f"launched {counts} (one forward and one backward a shared-block "
+        f"call), every one tc; loss {loss:.4f}, grad norm {gnorm:.3f}; "
+        f"step wall {wall:.2f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s; {smi}")
+    del params, state, stats, batch, step
+    torch.cuda.empty_cache()
+    return counts["flash_attention"], counts["flash_attention_bwd"]
 
 
 # ------------------------------------------------------- phases 20-23
@@ -4732,14 +4872,11 @@ def main() -> int:
         f"{_build.BUILD_INFO['path']}; ptxas (kernel: registers, spill "
         f"stores/loads bytes): " + " | ".join(
             f"{n}: {r}, {st}/{ld}" for n, r, st, ld in built))
-    wide = [x for x in built if x[0].startswith("tc::") and "<256>" in x[0]]
     if not _build.BUILD_INFO["ptxas"]:
         raise AssertionError(f"no ptxas report beside "
                              f"{_build.BUILD_INFO['path']}: remove the "
                              f"library so that it is built again")
-    if len(wide) != 4 or any(x[2] or x[3] for x in wide):
-        raise AssertionError(f"ptxas: the dh-256 tensor-core kernels "
-                             f"{wide}, want four without spill")
+    check_wide(built)
 
     rng = np.random.default_rng(0)
     alu_err = phase_simt_alu(rng)
@@ -4762,6 +4899,7 @@ def main() -> int:
     train_fwd, train_bwd, bwd_err = phase_train(_build.LAUNCHES, smi)
     family_prefill = phase_serve_families(_build.LAUNCHES, smi)
     zamba_fwd, zamba_bwd = phase_train_families(_build.LAUNCHES, smi)
+    z7_fwd, z7_bwd = phase_train_zamba2_7b(_build.LAUNCHES, smi)
     moe_prefill = phase_serve_moe(_build.LAUNCHES, smi)
     moe_fwd, moe_bwd = phase_train_moe(_build.LAUNCHES, smi)
     audio_prefill_n, audio_enc = phase_serve_audio(_build.LAUNCHES, smi)
@@ -4778,6 +4916,7 @@ def main() -> int:
         **{f"{arch} prefill (phase 18)": n
            for arch, n in family_prefill.items() if n},
         "zamba2-1.2b training (phase 19)": zamba_fwd,
+        f"{ZAMBA2_7B} training step (phase 19b)": z7_fwd,
         **{f"{arch} prefill (phase 20)": n
            for arch, n in moe_prefill.items()},
         f"{TRAIN_MOE} training (phase 21)": moe_fwd,
@@ -4792,6 +4931,7 @@ def main() -> int:
     kernels[-1]["launches_by_path"] = {
         "qwen3-0.6b training (phase 17)": train_bwd,
         "zamba2-1.2b training (phase 19)": zamba_bwd,
+        f"{ZAMBA2_7B} training step (phase 19b)": z7_bwd,
         f"{TRAIN_MOE} training (phase 21)": moe_bwd,
         "whisper-medium training (phase 23)": audio_bwd,
         "paligemma-3b training (phase 25)": vlm_bwd,

@@ -8,7 +8,10 @@ llama3.2-3b and yi-6b; the mixtures of experts dbrx-132b and kimi-k2
 (moe); mamba2-130m (ssm); zamba2-1.2b (hybrid); whisper-medium (audio,
 an encoder-decoder); paligemma-3b (vlm, a decoder behind an image
 prefix); and flexgrip, the paper's overlay configuration (a
-``MachineConfig``).  ``get`` of any other name raises ``KeyError``.
+``MachineConfig``).  ``EXTRA`` are the port's own architectures, which
+the JAX package does not have: zamba2-7b-instruct (hybrid, the published
+Zamba2 block, cut to one pipeline stage).  ``get`` of any other name
+raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -21,8 +24,11 @@ ARCH_IDS = (
     "llama3p2_3b", "yi_6b", "paligemma_3b", "kimi_k2", "dbrx_132b",
     "whisper_medium", "flexgrip",
 )
-#: the architectures whose modules the port has: all of them
-PORTED = ARCH_IDS
+#: architectures of the port alone (not in ``ARCH_IDS``, which matches the
+#: JAX package's)
+EXTRA = ("zamba2_7b_instruct",)
+#: the architectures whose modules the port has: all of them, and EXTRA
+PORTED = ARCH_IDS + EXTRA
 
 # assigned input shapes (LM family): name -> (seq_len, global_batch, kind)
 SHAPES: Dict[str, Tuple[int, int, str]] = {
@@ -76,7 +82,7 @@ def reduced(spec: ArchSpec) -> ArchSpec:
     """Same-family tiny config for CPU tests; a spec of a family without
     one (the overlay's ``flexgrip``) is returned unchanged."""
     from repro_torch.models.encdec import EncDecConfig
-    from repro_torch.models.hybrid import HybridConfig
+    from repro_torch.models.hybrid import HybridConfig, Zamba2Config
     from repro_torch.models.mamba2 import Mamba2Config
     from repro_torch.models.moe import MoEConfig
     from repro_torch.models.transformer import LMConfig
@@ -97,6 +103,12 @@ def reduced(spec: ArchSpec) -> ArchSpec:
         small = Mamba2Config(name=c.name + "-smoke", n_layers=2,
                              d_model=64, vocab=256, d_state=16,
                              head_dim=16, chunk=8)
+    elif isinstance(c, Zamba2Config):
+        small = Zamba2Config(name=c.name + "-smoke", n_layers=6,
+                             d_model=64, vocab=256, n_heads=4, n_kv=4,
+                             head_dim=32, d_ff=96, hybrid_layer_ids=(2, 5),
+                             adapter_rank=8, d_state=16, mamba_head_dim=16,
+                             chunk=8)
     elif spec.family == "hybrid":
         small = HybridConfig(name=c.name + "-smoke", n_layers=4,
                              d_model=64, vocab=256, n_heads=4, n_kv=4,

@@ -31,7 +31,7 @@
 // paligemma's (B 4, S 512, 8/1 heads of 256) the same 4.30 GFLOP over
 // 18.9 MB: 0.0056 ms, bytes again.
 //
-// Variant "tc" (bf16, dh 64, 128 or 256, 16-byte aligned rows), what
+// Variant "tc" (bf16, dh 64, 128, 224 or 256, 16-byte aligned rows), what
 // every model path runs.  One CTA of 4 warps per (64-query tile, head,
 // batch); each warp owns 16 query rows.  The query tile is the slowest
 // grid axis, reversed under `causal`: causal tile i does i+1 KV tiles, so
@@ -71,10 +71,17 @@
 //    prefill grid of 8 query tiles x 8 heads x 4 batches, 256 CTAs, fits
 //    the 264 places of 132 SMs in one wave, which the causal tiles'
 //    unequal work then bounds.
+//  - dh 224 (Zamba2-7B's shared attention, 32 heads of 224) runs the same
+//    kernel: 14 chunks 16 deep and 28 n8 tiles of O a warp; a row of 232
+//    elements (464 bytes, 29 16-byte units) keeps ldmatrix's eight rows
+//    in distinct banks, and a tile is 14 copies a thread; three tiles are
+//    87 KB.  Zero-padding to 256 would copy q, k, v and o and do 14% more
+//    products.
 // wgmma with TMA, warp-specialised, is later work.
 //
 // Variant "simt" (flash_kernel): float32 (the tensor cores would round it
-// to TF32), any dh up to 256 (bf16 at widths other than 64, 128, 256),
+// to TF32), any dh up to 256 (bf16 at widths other than 64, 128, 224 and
+// 256),
 // and rows that are not 16-byte aligned; `variant="simt"` forces it.  One
 // CTA of 256 threads per (64-query tile, head, batch).  The Q tile and
 // one 64-key tile (K, then V in the same buffer) are staged in shared
@@ -309,7 +316,7 @@ struct Tile {
   static constexpr int LD = DH + 8;     // padded row, elements
   static constexpr int SIZE = BK * LD;  // elements of one 64-row tile
   // dh 64, 128: two stages of K and V; Q borrows tile 2 (stage 1's K) at
-  // the start.  dh 256: Q, K and V, one tile each
+  // the start.  dh 224 and 256: Q, K and V, one tile each
   static constexpr size_t SMEM = (DH > 128 ? 3 : 4) * SIZE * sizeof(bf16);
 };
 
@@ -532,10 +539,10 @@ __global__ void __launch_bounds__(THREADS, 2)
   store_rows<NO>(acc, m, l, o, lse, os, b, h, w0, lane, Sq);
 }
 
-// dh 256: Q stays in shared memory and its A fragments are reloaded by
-// ldmatrix each KV tile; K and V have one buffer each and move in turn:
-// K(t+1) is in flight while the warps form P and multiply by V(t), V(t+1)
-// while they compute S of tile t+1 (three barriers a tile)
+// dh 224 and 256: Q stays in shared memory and its A fragments are
+// reloaded by ldmatrix each KV tile; K and V have one buffer each and move
+// in turn: K(t+1) is in flight while the warps form P and multiply by
+// V(t), V(t+1) while they compute S of tile t+1 (three barriers a tile)
 template <int DH>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_tc_wide_kernel(const bf16* __restrict__ q,
@@ -653,9 +660,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // contiguous; `strides` holds the batch,
 // sequence and head strides of q, k, v and o, in elements, in that order
 // (12 values, host memory).  dtype: 0 float32, 1 bfloat16.  variant: 0
-// "simt" (1 <= dh <= 256), 1 "tc" (bfloat16, dh 64, 128 or 256, 16-byte
-// aligned pointers, strides multiples of 8 elements: the wrapper's rule;
-// any other width returns cudaErrorInvalidValue).
+// "simt" (1 <= dh <= 256), 1 "tc" (bfloat16, dh 64, 128, 224 or 256,
+// 16-byte aligned pointers, strides multiples of 8 elements: the
+// wrapper's rule; any other width returns cudaErrorInvalidValue).
 // H % KH == 0.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
@@ -670,6 +677,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                             scale, causal, s);
     if (dtype == 1 && dh == 128)
       return tc::launch<128>(q, k, v, o, lse, strides, B, H, KH, Sq, Sk,
+                             scale, causal, s);
+    if (dtype == 1 && dh == 224)
+      return tc::launch<224>(q, k, v, o, lse, strides, B, H, KH, Sq, Sk,
                              scale, causal, s);
     if (dtype == 1 && dh == 256)
       return tc::launch<256>(q, k, v, o, lse, strides, B, H, KH, Sq, Sk,

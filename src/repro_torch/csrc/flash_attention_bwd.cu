@@ -39,7 +39,7 @@
 // ldmatrix issue rate of mma.sync: about 34 GFLOP of m16n8k16 products at
 // that shape, the diagonal tiles' masked halves included.
 //
-// Variant "tc" (bf16, dh 64, 128 or 256, 16-byte aligned rows of q, k, v,
+// Variant "tc" (bf16, dh 64, 128, 224 or 256, 16-byte aligned rows of q, k, v,
 // o and dO), what training runs, on mma.sync m16n8k16 (bf16 in, fp32
 // accumulator) with the helpers of mma.cuh, as the forward's "tc".  At dh
 // 64 and 128 (dkv_tc_kernel, dq_tc_kernel, delta_tc_kernel) each CTA has
@@ -72,7 +72,8 @@
 //    as they lie and, by ldmatrix.trans, of dQ += dS K.  The query tile is
 //    the slowest grid axis, reversed under `causal` (tile i does i + 1 KV
 //    tiles).
-//  - delta: 16-byte loads, dh / 8 lanes a row, summed by xor-shuffles.
+//  - delta: 16-byte loads, dh / 8 lanes a row (rounded up to a power of
+//    two, the lanes past it adding 0), summed by xor-shuffles.
 // Rows are padded by 16 bytes, so ldmatrix's eight rows fall in distinct
 // banks.  Shared memory: six 64-row tiles and two stages of the lse and D
 // rows, 103 KB at dh 128 (two CTAs an SM) and 55 KB at dh 64.  P and dS
@@ -111,10 +112,16 @@
 // (mma.sync and ldmatrix, 21.5 GFLOP with the masked halves of the
 // diagonal tiles) and the causal imbalance of the dK/dV tiles: key tile 0
 // sees all 8 query tiles, key tile 7 one.  wgmma with TMA is later work.
+// At dh 224 (Zamba2-7B's shared attention, 32 heads of 224, MHA) the same
+// kernels run: a warp's half of the head is 112 columns, 7 m16n8k16
+// column pairs, 112 accumulator registers for dK and dV; rows of 232
+// elements (29 16-byte units) keep ldmatrix conflict-free, and a tile is
+// 7 copies a thread of 256.  Shared memory 193 KB (dkv) and 184 KB (dq).
+// With one query head a KV head the split is 1 and dK, dV go out in bf16.
 //
 // Variant "simt" (delta_kernel, dkv_kernel, dq_kernel): float32 (the
 // tensor cores would round it to TF32), dh 1..256 (bf16 at widths other
-// than 64, 128, 256), unaligned rows; `variant="simt"` forces it.  Each
+// than 64, 128, 224, 256), unaligned rows; `variant="simt"` forces it.  Each
 // CTA has 256 threads: 16 row groups g x 16 column lanes, and works on
 // tiles of TR = 16 R rows (R = 4 up to dh 128, R = 2 above).  For a TR x
 // TR tile of S or dP, thread (g, lane) owns rows Rg..Rg+R-1 and keys
@@ -601,18 +608,29 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = mma::pack_bf16(c1[2], c1[3]);
 }
 
-// D = rowsum(dO o o) by 16-byte loads: dh / 8 lanes a row
+// lanes a row of delta_tc_kernel: dh / 8 rounded up to a power of two, so
+// that a row's lanes lie in one warp and xor-shuffles sum them
+template <int DH>
+__host__ __device__ constexpr int delta_lanes() {
+  int n = 1;
+  while (n < DH / 8) n *= 2;
+  return n;
+}
+
+// D = rowsum(dO o o) by 16-byte loads: dh / 8 lanes a row (the lanes past
+// them, at dh 224, add 0)
 template <int DH>
 __global__ void __launch_bounds__(256)
     delta_tc_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                     Strides os, Strides ds, float* __restrict__ delta, int H,
                     int Sq, long long rows) {
   constexpr int CH = DH / 8;
+  constexpr int LANES = delta_lanes<DH>();
   const long long row =
-      (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / CH;
-  const int c = threadIdx.x % CH;
+      (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / LANES;
+  const int c = threadIdx.x % LANES;
   float acc = 0.f;
-  if (row < rows) {
+  if (row < rows && c < CH) {
     const int i = static_cast<int>(row % Sq);
     const long long bh = row / Sq;
     const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
@@ -631,7 +649,7 @@ __global__ void __launch_bounds__(256)
     }
   }
 #pragma unroll
-  for (int off = CH / 2; off; off >>= 1)
+  for (int off = LANES / 2; off; off >>= 1)
     acc += __shfl_xor_sync(FULL, acc, off);
   if (row < rows && c == 0) delta[row] = acc;
 }
@@ -914,7 +932,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// ---- dh 256: eight warps, P^T and dS^T (dS for dQ) through shared memory
+// ---- dh 224 and 256: eight warps, P^T and dS^T (dS for dQ) through
+// shared memory
 constexpr int WTHREADS = 256;  // 8 warps
 constexpr int PLD = BQ + 8;    // row stride of a P or dS tile, elements
 
@@ -1337,7 +1356,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
   const long long rows = static_cast<long long>(B) * H * Sq;
   const unsigned blocks =
-      static_cast<unsigned>((rows * (DH / 8) + 255) / 256);
+      static_cast<unsigned>((rows * delta_lanes<DH>() + 255) / 256);
   delta_tc_kernel<DH><<<blocks, 256, 0, stream>>>(
       static_cast<const bf16*>(o), dot, os, dos, delta, H, Sq, rows);
   cudaError_t err = cudaGetLastError();
@@ -1402,11 +1421,12 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // `strides` holds the batch, sequence and head strides of q, k, v, o,
 // dout, dq, dk and dv, in elements, in that order (24 values, host
 // memory).  dtype: 0 float32, 1 bfloat16.  use_tc: 0 "simt" (dh 1..256),
-// 1 "tc" (bfloat16, dh 64, 128 or 256, 16-byte aligned pointers, strides
-// multiples of 8 elements: the wrapper's rule).  n_split: at dh 256 "tc",
-// the number of parts the query heads of a GQA group are split into for
-// dK and dV (a divisor of H / KH); above 1, `part` is fp32 scratch of 2 x
-// n_split x B x Sk x KH x dh values.  Else 1 and null.  H % KH == 0.
+// 1 "tc" (bfloat16, dh 64, 128, 224 or 256, 16-byte aligned pointers,
+// strides multiples of 8 elements: the wrapper's rule).  n_split: at dh 224
+// and 256 "tc", the number of parts the query heads of a GQA group are
+// split into for dK and dV (a divisor of H / KH); above 1, `part` is fp32
+// scratch of 2 x n_split x B x Sk x KH x dh values.  Else 1 and null.
+// H % KH == 0.
 // Returns cudaGetLastError() after the last launch.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
@@ -1416,7 +1436,7 @@ extern "C" int flash_attention_bwd_launch(
     float* part, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh < 1 || dh > 256 || KH < 1 || H % KH || n_split < 1 ||
-      (H / KH) % n_split || (n_split > 1 && (part == nullptr || dh != 256 ||
+      (H / KH) % n_split || (n_split > 1 && (part == nullptr || dh <= 128 ||
                                              !use_tc)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (use_tc) {
@@ -1426,6 +1446,10 @@ extern "C" int flash_attention_bwd_launch(
     if (dtype == 1 && dh == 128)
       return tc::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
                              strides, B, H, KH, Sq, Sk, scale, causal, 1, s);
+    if (dtype == 1 && dh == 224)
+      return tc::launch<224>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
+                             strides, B, H, KH, Sq, Sk, scale, causal,
+                             n_split, s);
     if (dtype == 1 && dh == 256)
       return tc::launch<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
                              strides, B, H, KH, Sq, Sk, scale, causal,

@@ -31,10 +31,12 @@ def tile_ok(Sq: int, Sk: int) -> bool:
     return Sq % min(256, Sq) == 0 and Sk % min(256, Sk) == 0 and Sq > 8
 
 
-def mha(q, k, v, *, causal=True, bq=256, bk=256, use_kernel=True):
+def mha(q, k, v, *, causal=True, bq=256, bk=256, use_kernel=True,
+        scale=None):
     """(B, S, H, dh) GQA attention via the flash kernel.
 
-    q (B, Sq, H, dh), k/v (B, Sk, KH, dh).  Shapes that pass
+    q (B, Sq, H, dh), k/v (B, Sk, KH, dh); the scores scaled by ``scale``
+    (None: dh ** -0.5).  Shapes that pass
     :func:`tile_ok` take the kernel (causal mask aligned top-left, as the
     TPU kernel's); the others, e.g. decode, and every shape under
     ``use_kernel=False``, take the plain oracle, aligned bottom-right as
@@ -46,5 +48,7 @@ def mha(q, k, v, *, causal=True, bq=256, bk=256, use_kernel=True):
     Sq, Sk = q.shape[1], k.shape[1]
     if use_kernel and tile_ok(Sq, Sk):
         _fa.check_blocks(Sq, Sk, bq, bk)
-        return _fa.flash_attention_gqa(q, k, v, causal=causal)
-    return ref.mha_ref(q, k, v, causal=causal, q_offset=Sk - Sq)
+        kw = {} if scale is None else {"scale": scale}
+        return _fa.flash_attention_gqa(q, k, v, causal=causal, **kw)
+    return ref.mha_ref(q, k, v, causal=causal, q_offset=Sk - Sq,
+                       scale=scale)

@@ -16,6 +16,8 @@ training, and ``mha_bwd_ref`` is the plain version of the backward kernel
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..core import isa
@@ -76,10 +78,12 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        scale: Optional[float] = None):
     """Plain version of the flash-attention kernel (float32 softmax).
 
-    q (BH, Sq, dh), k/v (BH, Sk, dh) -> (BH, Sq, dh) in q's dtype.  Under
+    q (BH, Sq, dh), k/v (BH, Sk, dh) -> (BH, Sq, dh) in q's dtype; the
+    scores scaled by ``scale`` (None: dh ** -0.5).  Under
     ``causal``, query i sees key j when ``i + q_offset >= j``: the
     Pallas kernel and the CUDA kernel align top-left (``q_offset=0``);
     the JAX package's oracle aligns bottom-right (``q_offset=Sk-Sq``),
@@ -88,7 +92,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """
     Sq, dh = q.shape[1], q.shape[2]
     Sk = k.shape[1]
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * dh ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * \
+        (dh ** -0.5 if scale is None else scale)
     if causal:
         qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
         mask = qi >= torch.arange(Sk, device=q.device)[None, :]
@@ -97,7 +102,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
-def mha_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+def mha_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+            scale: Optional[float] = None):
     """Plain GQA attention in the model's layout: q (B, Sq, H, dh), k/v
     (B, Sk, KH, dh) -> (B, Sq, H, dh).  Folds (B, H) into one axis and
     repeats each KV head H // KH times, as the JAX package's ``ops.mha``
@@ -111,7 +117,7 @@ def mha_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
 
     of = flash_attention_ref(q.transpose(1, 2).reshape(B * H, Sq, dh),
                              fold(k, Sk), fold(v, Sk), causal=causal,
-                             q_offset=q_offset)
+                             q_offset=q_offset, scale=scale)
     return of.reshape(B, H, Sq, dh).transpose(1, 2)
 
 
@@ -121,12 +127,17 @@ def _heads(x, rep: int):
     return x.float().transpose(1, 2).repeat_interleave(rep, dim=1)
 
 
-def _scores(q, k, causal: bool):
+def _scale(q, scale: Optional[float]) -> float:
+    """The scores' scale: ``scale``, or dh ** -0.5 where it is None."""
+    return q.shape[-1] ** -0.5 if scale is None else scale
+
+
+def _scores(q, k, causal: bool, scale: Optional[float] = None):
     """S * scale, (B, H, Sq, Sk) float32, -1e30 where query i may not see
     key j (``i < j`` under ``causal``, top-left as the kernel)."""
-    H, dh = q.shape[2], q.shape[3]
+    H = q.shape[2]
     s = _heads(q, 1) @ _heads(k, H // k.shape[2]).transpose(-1, -2) \
-        * dh ** -0.5
+        * _scale(q, scale)
     if causal:
         Sq, Sk = s.shape[-2:]
         qi = torch.arange(Sq, device=q.device)[:, None]
@@ -134,15 +145,17 @@ def _scores(q, k, causal: bool):
     return s
 
 
-def mha_lse_ref(q, k, v, *, causal: bool = True):
+def mha_lse_ref(q, k, v, *, causal: bool = True,
+                scale: Optional[float] = None):
     """:func:`mha_ref` (top-left mask) and the row log-sum-exp the kernel
     writes for training: (o (B, Sq, H, dh) in q's dtype, lse (B, H, Sq)
     float32, natural log of the scaled scores' row sums)."""
-    lse = torch.logsumexp(_scores(q, k, causal), dim=-1)
-    return mha_ref(q, k, v, causal=causal), lse
+    lse = torch.logsumexp(_scores(q, k, causal, scale), dim=-1)
+    return mha_ref(q, k, v, causal=causal, scale=scale), lse
 
 
-def mha_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True):
+def mha_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
+                scale: Optional[float] = None):
     """Plain backward of the flash kernel, in float32.
 
     q, o, do (B, Sq, H, dh); k, v (B, Sk, KH, dh); lse (B, H, Sq) from the
@@ -150,12 +163,12 @@ def mha_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True):
     ``D = rowsum(dO o O)``:
     ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P o (dP - D)``, ``dQ = dS K
     scale``, ``dK = dS^T Q scale``, dK and dV summed over the query heads
-    that share a KV head.  Returns (dq in q's dtype, dk, dv in k's dtype)
-    in the inputs' layouts."""
+    that share a KV head; ``scale`` None is dh ** -0.5.  Returns (dq in
+    q's dtype, dk, dv in k's dtype) in the inputs' layouts."""
     B, Sq, H, dh = q.shape
     Sk, KH = k.shape[1], k.shape[2]
-    rep, scale = H // KH, dh ** -0.5
-    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+    rep, scale = H // KH, _scale(q, scale)
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
     g, qh, kh, vh = _heads(do, 1), _heads(q, 1), _heads(k, rep), \
         _heads(v, rep)
     delta = (g * _heads(o, 1)).sum(-1, keepdim=True)

@@ -34,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-from typing import Optional
+from typing import ClassVar, Optional
 
 import torch
 import torch.distributed._functional_collectives as funcol
@@ -298,7 +298,8 @@ def _attend(fn, q, k, v, time_fn=None):
     return local_call(run, (q, k, v), (qpl, kpl, kpl), tuple(qpl), mesh)
 
 
-def _decode_time_split(q, k, v, mesh, dims, t0, *, q_offset: int):
+def _decode_time_split(q, k, v, mesh, dims, t0, *, q_offset: int,
+                       scale: Optional[float] = None):
     """:func:`causal_attention` (``causal=False``, fp32 softmax) of the
     whole cache from this rank's shard of its time axis (keys ``t0`` on):
     each shard's row maximum, exponential sums and weighted values, made
@@ -310,7 +311,8 @@ def _decode_time_split(q, k, v, mesh, dims, t0, *, q_offset: int):
     rep = H // K
     qg = q.reshape(B, S, K, rep, dh)
     logits = torch.einsum("bskrd,btkd->bkrst", qg.float(), k.float()) \
-        * torch.tensor(dh ** -0.5, dtype=torch.float32)
+        * torch.tensor(dh ** -0.5 if scale is None else scale,
+                       dtype=torch.float32)
     qpos = q_offset + torch.arange(S, device=q.device)
     kpos = t0 + torch.arange(T, device=q.device)
     logits = logits.masked_fill(qpos[:, None] < kpos[None, :], -1e30)
@@ -327,21 +329,23 @@ def _decode_time_split(q, k, v, mesh, dims, t0, *, q_offset: int):
     return out.reshape(B, S, H, dh).to(q.dtype)
 
 
-def attend_cache(q, ck, cv, q_offset: int):
+def attend_cache(q, ck, cv, q_offset: int, scale: Optional[float] = None):
     """A decode step's attention over the KV cache: the plain
-    :func:`causal_attention` (``causal=False``, ``q_offset``), placed as
+    :func:`causal_attention` (``causal=False``, ``q_offset``, ``scale``;
+    None is dh ** -0.5), placed as
     :func:`attend` places it, but a DTensor cache sharded on its time axis
     (``decode_state_spec`` at batch 1, or where the KV heads do not divide
     the ``model`` axis) is read where it lies (:func:`_decode_time_split`).
     """
     if not isinstance(q, DTensor) and not _counting():
-        return causal_attention(q, ck, cv, causal=False, q_offset=q_offset)
+        return causal_attention(q, ck, cv, causal=False, q_offset=q_offset,
+                                scale=scale)
     with _attn_scope():
         return _attend(
             functools.partial(causal_attention, causal=False,
-                              q_offset=q_offset), q, ck, cv,
+                              q_offset=q_offset, scale=scale), q, ck, cv,
             time_fn=functools.partial(_decode_time_split,
-                                      q_offset=q_offset))
+                                      q_offset=q_offset, scale=scale))
 
 
 def write_cache(cache, new, index: int):
@@ -407,6 +411,17 @@ class AttnConfig:
     impl: str = "reference"    # "reference" | "chunked"
     q_chunk: int = 512
     softmax_dtype: str = "f32"  # "f32" | "bf16"
+    #: the scores' scale; None is head_dim ** -0.5 (a class default, so
+    #: that the JAX package's configurations keep their fields;
+    #: :class:`ScaledAttnConfig` makes it a field)
+    scale: ClassVar[Optional[float]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaledAttnConfig(AttnConfig):
+    """:class:`AttnConfig` with the scores' scale as a field (Zamba2's
+    shared attention: (head_dim / 2) ** -0.5)."""
+    scale: Optional[float] = None
 
 
 def attn_init(gen: torch.Generator, cfg: AttnConfig, lead=(), device=None):
@@ -432,6 +447,9 @@ def attn_apply(p, cfg: AttnConfig, x, positions, *, kv_cache=None,
 
     The cache is written in place (the JAX package donates it) and
     returned.  Which attention runs:
+
+    The kernel and the decode step scale the scores by ``cfg.scale``
+    (None: dh ** -0.5); the chunked and bf16-softmax paths by dh ** -0.5.
 
     * no cache, ``impl="reference"``, f32 softmax: ``ops.mha`` (causal);
       the bf16 softmax: the plain :func:`causal_attention`;
@@ -462,7 +480,8 @@ def attn_apply(p, cfg: AttnConfig, x, positions, *, kv_cache=None,
     k = apply_rope(k, positions, cfg.rope_theta)
     q = constrain(q, "act_heads")
     k = constrain(k, "act_kv")
-    mha = functools.partial(ops.mha, causal=True)
+    mha = functools.partial(ops.mha, causal=True) if cfg.scale is None else \
+        functools.partial(ops.mha, causal=True, scale=cfg.scale)
     if kv_cache is None:
         if cfg.impl == "chunked":
             fn = functools.partial(chunked_attention, causal=True,
@@ -487,7 +506,7 @@ def attn_apply(p, cfg: AttnConfig, x, positions, *, kv_cache=None,
         else:
             # position-based mask: causal within the new chunk AND only
             # the first cache_index + S cache entries are live
-            out = attend_cache(q, ck, cv, ci)
+            out = attend_cache(q, ck, cv, ci, cfg.scale)
         new_cache = (ck, cv)
     out = merge_last(out) @ wo
     return constrain(out, "act_resid"), new_cache
@@ -507,6 +526,17 @@ def ffn_apply(p, x, constrain=lambda t, *a: t):
     h = F.silu(x @ wg) * (x @ wi)
     h = constrain(h, "act_ffn")
     return constrain(h @ wo, "act_resid")
+
+
+def gelu_ffn_lora_apply(p, x, lora_a, lora_b):
+    """The GELU-gated feed-forward with a low-rank term on its fused
+    gate-up product (Zamba2's shared MLP): ``gu = x @ gate_up + (x @
+    lora_a) @ lora_b``, its halves gate and up, then ``(gelu(gate) * up)
+    @ down``; GELU exact (erf).  x (..., D), gate_up (D, 2F), lora_a (D,
+    r), lora_b (r, 2F), down (F, D)."""
+    gu = x @ p["gate_up"] + (x @ lora_a) @ lora_b
+    gate, up = gu.chunk(2, dim=-1)
+    return (F.gelu(gate) * up) @ p["down"]
 
 
 # ------------------------------------------------------------- embedding

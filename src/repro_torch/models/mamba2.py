@@ -21,16 +21,30 @@ arithmetic, a comment says why:
   ``torch.use_deterministic_algorithms``, which the train step runs under;
 * B and C are repeated over the heads of their group by an ``expand``
   that gives head h the group h // rep, the order of ``jnp.repeat``.
+
+Four settings of :class:`Mamba2Config` are class defaults that give the
+JAX package's block (so its configurations' fields stay the JAX
+package's); :class:`PublishedMamba2Config` makes them fields, set to
+Zamba2's published block (``transformers``' ``Zamba2MambaMixer``):
+``norm_before_gate`` False normalises after the gate, ``rmsnorm(y *
+silu(z))`` over each of ``n_groups`` groups of d_inner; ``conv_bias`` adds
+a bias to the depthwise conv; ``norm_eps`` is the eps of both norms;
+``dt_min`` clamps dt from below after its softplus.
+
+The chunked scan is the span ``mamba2.ssd`` of ``obs.trace.TRACER``, with
+its chunks as an attribute.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..launch.mesh import local_call, pin_grad
+from ..obs.trace import TRACER
 from . import layers as L
 from .layers import _he, layer_params
 
@@ -48,6 +62,16 @@ class Mamba2Config:
     conv_width: int = 4
     chunk: int = 256
     remat: str = "dots"
+    #: True: ``rmsnorm(y) * silu(z)`` over all of d_inner (the JAX
+    #: package's); False: ``rmsnorm(y * silu(z))`` over each group of
+    #: ``d_inner / n_groups`` (Mamba2's and Zamba2's published block)
+    norm_before_gate: ClassVar[bool] = True
+    #: a bias on the depthwise conv, added before its SiLU
+    conv_bias: ClassVar[bool] = False
+    #: eps of the block's input norm and of its gated norm
+    norm_eps: ClassVar[float] = 1e-6
+    #: dt clamped from below after its softplus (0: no clamp)
+    dt_min: ClassVar[float] = 0.0
 
     @property
     def d_inner(self) -> int:
@@ -61,7 +85,7 @@ class Mamba2Config:
         D, DI = self.d_model, self.d_inner
         G, N, H = self.n_groups, self.d_state, self.n_heads
         in_proj = D * (2 * DI + 2 * G * N + H)
-        conv = self.conv_width * (DI + 2 * G * N)
+        conv = (self.conv_width + self.conv_bias) * (DI + 2 * G * N)
         per_layer = in_proj + conv + H * 2 + DI + DI * D + 2 * D
         return self.n_layers * per_layer + self.vocab * D + D
 
@@ -69,11 +93,21 @@ class Mamba2Config:
         return self.param_count()
 
 
+@dataclasses.dataclass(frozen=True)
+class PublishedMamba2Config(Mamba2Config):
+    """:class:`Mamba2Config` with the published block's settings as
+    fields (Zamba2's defaults)."""
+    norm_before_gate: bool = False
+    conv_bias: bool = True
+    norm_eps: float = 1e-5
+    dt_min: float = 0.001
+
+
 def _block_weights(gen: torch.Generator, cfg: Mamba2Config, lead, dev):
     D, DI, G, N, H = (cfg.d_model, cfg.d_inner, cfg.n_groups, cfg.d_state,
                       cfg.n_heads)
     f32 = dict(dtype=torch.float32, device=dev)
-    return {
+    out = {
         "ln": L.rmsnorm_init(D, device=dev, lead=lead),
         "in_proj": _he(gen, (*lead, D, 2 * DI + 2 * G * N + H), device=dev),
         "conv_w": _he(gen, (*lead, cfg.conv_width, DI + 2 * G * N),
@@ -84,6 +118,10 @@ def _block_weights(gen: torch.Generator, cfg: Mamba2Config, lead, dev):
         "gate_norm": L.rmsnorm_init(DI, device=dev, lead=lead),
         "out_proj": _he(gen, (*lead, DI, D), device=dev),
     }
+    if cfg.conv_bias:
+        out["conv_b"] = torch.zeros((*lead, DI + 2 * G * N),
+                                    dtype=L.PARAM_DTYPE, device=dev)
+    return out
 
 
 def init_layer(gen: torch.Generator, cfg: Mamba2Config, device=None):
@@ -214,12 +252,14 @@ def ssd_local(x, dt, A, B, C, cfg: Mamba2Config, h0=None):
     return y.to(x.dtype), h
 
 
-def _causal_conv(x, w, state=None):
-    """Depthwise causal conv.  x: (B, S, C), w: (K, C).
+def _causal_conv(x, w, state=None, bias=None):
+    """Depthwise causal conv.  x: (B, S, C), w: (K, C), bias: None or
+    (C,).
 
     Returns (y, new_state) where state is the trailing K-1 inputs.  The K
     products are summed left to right in x's dtype, each sum rounded, as
-    the JAX package's Python ``sum`` does."""
+    the JAX package's Python ``sum`` does; the bias is added last, before
+    the SiLU."""
     K = w.shape[0]
     if state is None:
         pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
@@ -228,6 +268,8 @@ def _causal_conv(x, w, state=None):
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], 1)
     y = sum(xp[:, i:i + x.shape[1]] * w[i][None, None] for i in range(K))
+    if bias is not None:
+        y = y + bias
     return F.silu(y), xp[:, -(K - 1):]
 
 
@@ -246,48 +288,73 @@ def block_apply(lp, cfg: Mamba2Config, x, *, state=None,
     Bt, S, D = x.shape
     DI, G, N, H, P = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
                       cfg.head_dim)
-    xn = L.rmsnorm(lp["ln"], x)
+    xn = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
     # on a mesh whole along the split that follows, its gradient placed so
     # too, for in_proj's gradient product
     zxbcdt = pin_grad(xn @ lp["in_proj"], whole_last=True)
     z, xbc, dt = torch.split(zxbcdt, [DI, DI + 2 * G * N, H], dim=-1)
     conv_state = None if state is None else state["conv"]
-    xbc, new_conv = _causal_conv(xbc, lp["conv_w"], conv_state)
+    xbc, new_conv = _causal_conv(xbc, lp["conv_w"], conv_state,
+                                 lp.get("conv_b"))
     xs, B_, C_ = torch.split(xbc, [DI, G * N, G * N], dim=-1)
     xs = constrain(xs, "act_ffn")
     dt = softplus(dt.float() + lp["dt_bias"])
+    if cfg.dt_min:
+        dt = dt.clamp(min=cfg.dt_min)
     xh = L.split_last(xs, H, P)
     B_ = L.split_last(B_, G, N)
     C_ = L.split_last(C_, G, N)
     h0 = None if state is None else state["ssm"]
-    y, h_final = ssd_chunked(xh, dt, lp["A_log"], B_, C_, cfg, h0=h0)
+    # the published block keeps the scan's output, its skip and the gated
+    # norm in fp32 (the JAX package's rounds the scan's output to bf16)
+    xh = xh if cfg.norm_before_gate else xh.float()
+    with TRACER.span("mamba2.ssd", chunks=-(-S // cfg.chunk)):
+        y, h_final = ssd_chunked(xh, dt, lp["A_log"], B_, C_, cfg, h0=h0)
     y = y + xh * lp["D_skip"][None, None, :, None].to(y.dtype)
     y = L.merge_last(y)
-    y = L.rmsnorm(lp["gate_norm"], y) * F.silu(z)
+    if cfg.norm_before_gate:
+        y = L.rmsnorm(lp["gate_norm"], y, cfg.norm_eps) * F.silu(z)
+    else:
+        y = gated_group_norm(lp["gate_norm"], y, z, G, cfg.norm_eps)
     out = y @ lp["out_proj"]
     new_state = None if state is None else \
         {"conv": new_conv, "ssm": h_final}
     return constrain(out, "act_resid"), new_state
 
 
+def gated_group_norm(g, y, z, groups: int, eps: float):
+    """``rmsnorm(y * silu(z))`` over each of ``groups`` equal groups of the
+    last axis, in fp32, rounded to z's dtype before the gain (Zamba2's
+    ``Zamba2RMSNormGated``)."""
+    yz = y.float() * F.silu(z.float())
+    yg = yz.reshape(*yz.shape[:-1], groups, yz.shape[-1] // groups)
+    yg = yg * torch.rsqrt(yg.square().mean(-1, keepdim=True) + eps)
+    return yg.reshape(yz.shape).to(z.dtype) * g
+
+
 def run_layers(layers, cfg: Mamba2Config, x, lo: int, hi: int, states=None,
-               constrain=lambda t, *a: t):
+               constrain=lambda t, *a: t, inject=None):
     """Blocks ``lo`` to ``hi`` of the stacked ``layers`` over the residual
     ``x``.  Training (``states`` None): each block's body under the remat
     policy ``cfg.remat``.  Decode: ``states`` (the stacked dict(conv, ssm)
-    of all layers) is read, and written in place with the new states."""
-    def body(x, lp):
-        return x + block_apply(lp, cfg, x, constrain=constrain)[0]
+    of all layers) is read, and written in place with the new states.
+    ``inject`` (Zamba2's shared-block output) is added to block ``lo``'s
+    input and not to its residual: ``x + block(x + inject)``."""
+    def body(x, lp, inject=None):
+        h = x if inject is None else x + inject
+        return x + block_apply(lp, cfg, h, constrain=constrain)[0]
 
     if states is None:
         body = L.remat(cfg.remat, body)
     for i in range(lo, hi):
         lp = layer_params(layers, i)
+        inj, inject = inject, None
         if states is None:
-            x = body(x, lp)
+            x = body(x, lp) if inj is None else body(x, lp, inj)
             continue
         st = layer_params(states, i)
-        out, new = block_apply(lp, cfg, x, state=st, constrain=constrain)
+        out, new = block_apply(lp, cfg, x if inj is None else x + inj,
+                               state=st, constrain=constrain)
         x = x + out
         st["conv"].copy_(new["conv"])
         st["ssm"].copy_(new["ssm"])

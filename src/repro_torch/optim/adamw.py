@@ -84,6 +84,34 @@ def _vhat_update(v, g2, b2):
     return new_v, new_v
 
 
+#: a plain leaf of more elements than this, stacked on a leading axis
+#: whose every entry holds at least ``MIN_SLICE_NUMEL``, is updated one
+#: entry at a time: the update's fp32 temporaries are then an entry's,
+#: not the leaf's (Zamba2-7B's stacked in_proj, 1.26 G elements, would
+#: hold about 30 GB of them), and every value is bit-equal, each step
+#: being element-wise.  A long leaf of short rows (an embedding of 257216
+#: rows) stays whole: a launch a row would cost more than the step
+SLICE_NUMEL, MIN_SLICE_NUMEL = 1 << 28, 1 << 24
+
+
+def _leaf_update(p, g, m, v, cfg: OptConfig, scale, lr, bc1, bc2,
+                 decay: bool):
+    """(p_new, m_new, v_new) of one leaf, or one slice of it."""
+    g32 = g.float() * scale
+    m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
+    v_new, vhat = _vhat_update(v, g32.square(), cfg.b2)
+    update = (m32 / bc1) / (torch.sqrt(vhat / bc2) + cfg.eps)
+    if decay:  # decoupled weight decay on matrices only
+        update = update + cfg.weight_decay * p.float()
+    return (p.float() - lr * update).to(p.dtype), m32.to(m.dtype), v_new
+
+
+def _sliced(p, v) -> bool:
+    return (p.numel() > SLICE_NUMEL and p.ndim >= 2 and
+            p.numel() // p.shape[0] >= MIN_SLICE_NUMEL and
+            not hasattr(p, "placements") and not isinstance(v, dict))
+
+
 def _into(old, new):
     """``new`` written into ``old``'s storage (``old``'s placements when a
     DTensor); returns ``old``."""
@@ -119,13 +147,20 @@ def step(params, opt_state, grads, cfg: OptConfig, donate: bool = False):
 
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        g32 = g.float() * scale
-        m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
-        v_new, vhat = _vhat_update(v, g32.square(), cfg.b2)
-        update = (m32 / bc1) / (torch.sqrt(vhat / bc2) + cfg.eps)
-        if p.ndim >= 2:  # decoupled weight decay on matrices only
-            update = update + cfg.weight_decay * p.float()
-        p_new, m_new = (p.float() - lr * update).to(p.dtype), m32.to(m.dtype)
+        if _sliced(p, v):
+            outs = (p, m, v) if donate else tuple(
+                torch.empty_like(x) for x in (p, m, v))
+            for i in range(p.shape[0]):
+                for o, x in zip(outs, _leaf_update(p[i], g[i], m[i], v[i],
+                                                   cfg, scale, lr, bc1, bc2,
+                                                   True)):
+                    o[i].copy_(x)
+            new_p.append(outs[0])
+            new_m.append(outs[1])
+            new_v.append(outs[2])
+            continue
+        p_new, m_new, v_new = _leaf_update(p, g, m, v, cfg, scale, lr, bc1,
+                                           bc2, p.ndim >= 2)
         if donate:
             p_new, m_new = _into(p, p_new), _into(m, m_new)
             v_new = ({k: _into(v[k], v_new[k]) for k in v}
